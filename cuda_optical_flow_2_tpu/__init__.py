@@ -1,8 +1,8 @@
-"""TPU-native dense optical flow framework.
+"""Dense optical flow framework in JAX, running on the GPU.
 
 A from-scratch JAX/XLA/Pallas re-design of the pyramidal Lucas-Kanade pipeline
 behind "Speeding up Dense Optical Flow Estimation with CUDA" (Stameski &
-Gusev, TELFOR 2024; reference sources mounted at /root/reference).  See
+Gusev, TELFOR 2024; Kr-Stam/CUDA_Optical_Flow_2).  See
 SURVEY.md for the structural analysis of the reference and the layer map this
 package implements.
 

@@ -1,8 +1,9 @@
 """Benchmark CLI: throughput + accuracy across the BASELINE configurations.
 
 Runs any of the five BASELINE.json configs (the reference's implied operating
-points scaled up) and reports per-config throughput (honest chained device
-timing, see utils/profiling.py) and, where ground truth exists, EPE.
+points scaled up) on the GPU and reports per-config throughput (host clock
+around ``block_until_ready``, see utils/profiling.py), the device it ran on,
+and, where ground truth exists, EPE.  Exits non-zero without a GPU.
 
     python -m cuda_optical_flow_2_tpu.cli.benchmark --configs 1 4 --iters 20
 """
@@ -19,7 +20,13 @@ import jax.numpy as jnp
 
 import cuda_optical_flow_2_tpu as of
 from cuda_optical_flow_2_tpu.utils import io as uio
-from cuda_optical_flow_2_tpu.utils.profiling import device_time
+from cuda_optical_flow_2_tpu.cli import xla_only
+from cuda_optical_flow_2_tpu.utils.profiling import (
+    device_info,
+    device_time,
+    enable_compile_cache,
+    require_gpu,
+)
 
 __all__ = ["main", "CONFIGS"]
 
@@ -87,48 +94,42 @@ def _run_config(idx: int, spec: dict, iters: int) -> dict:
     return {
         "config": idx,
         "name": spec["name"],
-        "fps": round(fps, 2),
-        "ms_per_frame": round(1e3 * secs, 3),
-        "epe_vs_truth": round(epe, 4),
+        "fps": fps,
+        "ms_per_frame": 1e3 * secs,
+        "epe_vs_truth": epe,
     }
 
 
 def _model_cfg(model: str, lk_cfg, no_pallas: bool):
     """Map a BASELINE LK config onto the requested model family."""
-    use_pallas = lk_cfg.use_pallas and not no_pallas
     if model == "hs":
         from cuda_optical_flow_2_tpu.models.horn_schunck import HSConfig
 
-        return HSConfig(
-            levels=lk_cfg.levels, iterations=100, use_pallas=use_pallas
-        )
-    if model == "tvl1":
+        cfg = HSConfig(levels=lk_cfg.levels, iterations=100)
+    elif model == "tvl1":
         from cuda_optical_flow_2_tpu.models.tvl1 import TVL1Config
 
-        return TVL1Config(levels=lk_cfg.levels, use_pallas=use_pallas)
-    if model == "fb":
+        cfg = TVL1Config(levels=lk_cfg.levels)
+    elif model == "fb":
         from cuda_optical_flow_2_tpu.models.farneback import FBConfig
 
-        return FBConfig(
+        cfg = FBConfig(
             levels=lk_cfg.levels,
             winsize=lk_cfg.window if lk_cfg.window % 2 else lk_cfg.window + 1,
-            use_pallas=use_pallas,
         )
-    if model == "dis":
+    elif model == "dis":
         from cuda_optical_flow_2_tpu.models.dis import DISConfig
 
-        return DISConfig(
+        cfg = DISConfig(
             levels=lk_cfg.levels,
             window=lk_cfg.window if lk_cfg.window % 2 else lk_cfg.window + 1,
-            use_pallas=use_pallas,
         )
-    return of.LKConfig(**{**lk_cfg.__dict__, "use_pallas": use_pallas})
+    else:
+        cfg = lk_cfg
+    return xla_only(cfg) if no_pallas else cfg
 
 
 def main(argv=None) -> None:
-    from cuda_optical_flow_2_tpu.cli import apply_platform_env
-
-    apply_platform_env()
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--configs", type=int, nargs="+", default=[1, 2, 3, 4])
     ap.add_argument("--iters", type=int, default=20)
@@ -139,13 +140,17 @@ def main(argv=None) -> None:
         "carry over; HS uses its default 100 sweeps)",
     )
     args = ap.parse_args(argv)
+    require_gpu("of2-benchmark")
+    enable_compile_cache()
+    device = device_info()
 
     for idx in args.configs:
         spec = dict(CONFIGS[idx])
         spec["cfg"] = _model_cfg(args.model, spec["cfg"], args.no_pallas)
         if args.model != "lk":
             spec["name"] = f'{spec["name"]} [{args.model}]'
-        print(json.dumps(_run_config(idx, spec, args.iters)), flush=True)
+        rec = _run_config(idx, spec, args.iters)
+        print(json.dumps({**rec, "device": device}), flush=True)
 
 
 if __name__ == "__main__":

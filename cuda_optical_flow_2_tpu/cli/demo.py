@@ -1,7 +1,7 @@
 """Demo CLI — the headless twin of the reference's webcam app (main.cu).
 
 The reference's only executable is a webcam loop with OpenCV debug windows;
-TPU hosts are headless, so this demo consumes synthetic sequences or image
+accelerator hosts are headless, so this demo consumes synthetic sequences or image
 files and writes PNG artifacts (flow color wheel, arrow overlays, per-level
 gradient maps a la showTest) plus an fps/EPE report to stdout.
 
@@ -82,9 +82,10 @@ def _dump_gradients(frame, prev_frame, levels: int, out_dir: str, idx: int) -> N
 
 
 def main(argv=None) -> None:
-    from cuda_optical_flow_2_tpu.cli import apply_platform_env
+    from cuda_optical_flow_2_tpu.cli import xla_only
+    from cuda_optical_flow_2_tpu.utils.profiling import enable_compile_cache
 
-    apply_platform_env()
+    enable_compile_cache()
     ap = argparse.ArgumentParser(description=__doc__)
     src = ap.add_mutually_exclusive_group()
     src.add_argument(
@@ -130,7 +131,10 @@ def main(argv=None) -> None:
         help="TV-L1 flow median filter size (odd; 0 = off; default: the "
         "config default 5, matching OpenCV DualTVL1)",
     )
-    ap.add_argument("--no-pallas", action="store_true")
+    ap.add_argument(
+        "--no-pallas", action="store_true",
+        help="run the XLA twin instead of the fused GPU residual kernel",
+    )
     ap.add_argument("--out", default=None, help="artifact output directory")
     ap.add_argument("--arrow-res", type=int, default=30)
     ap.add_argument(
@@ -251,7 +255,6 @@ def main(argv=None) -> None:
             iterations=args.iterations if args.iterations is not None else 30,
             **({} if args.median is None else {"median_filtering": args.median}),
             prefilter=prefilter,
-            use_pallas=not args.no_pallas,
         )
     elif args.model == "dis":
         from cuda_optical_flow_2_tpu.models.dis import DISConfig
@@ -263,7 +266,6 @@ def main(argv=None) -> None:
             **({} if args.window_weights is None
                else {"window_weights": args.window_weights}),
             prefilter=prefilter,
-            use_pallas=not args.no_pallas,
         )
     elif args.model == "fb":
         from cuda_optical_flow_2_tpu.models.farneback import FBConfig
@@ -273,7 +275,6 @@ def main(argv=None) -> None:
             iterations=args.iterations if args.iterations is not None else 3,
             winsize=args.window if args.window % 2 else args.window + 1,
             prefilter=prefilter,
-            use_pallas=not args.no_pallas,
         )
     elif args.model == "hs":
         from cuda_optical_flow_2_tpu.models.horn_schunck import HSConfig
@@ -284,7 +285,6 @@ def main(argv=None) -> None:
             levels=args.levels,
             temporal_kernel=args.temporal_kernel,
             prefilter=prefilter,
-            use_pallas=not args.no_pallas,
         )
     else:
         cfg = of.LKConfig(
@@ -295,8 +295,9 @@ def main(argv=None) -> None:
             **({} if args.window_weights is None
                else {"window_weights": args.window_weights}),
             prefilter=prefilter,
-            use_pallas=not args.no_pallas,
         )
+    if args.no_pallas:
+        cfg = xla_only(cfg)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
 
@@ -322,8 +323,8 @@ def main(argv=None) -> None:
 
     # Flow-color rendering runs ON DEVICE (viz.flow_to_color_device): the
     # NumPy pass costs seconds per 1080p frame on a weak host CPU and would
-    # cap the live view; the kernel is ~0.4 ms and the host fetches 3 B/px
-    # of uint8 RGB instead of running the colorize in the frame loop.
+    # cap the live view; on the device the host fetches 3 B/px of uint8 RGB
+    # instead of running the colorize in the frame loop.
     import jax as _jax
 
     _render = _jax.jit(viz.flow_to_color_device, static_argnums=(1,))

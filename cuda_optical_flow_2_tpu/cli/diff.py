@@ -19,9 +19,9 @@ import numpy as np
 
 
 def main(argv=None) -> None:
-    from cuda_optical_flow_2_tpu.cli import apply_platform_env
+    from cuda_optical_flow_2_tpu.utils.profiling import enable_compile_cache
 
-    apply_platform_env()
+    enable_compile_cache()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
         "--model", choices=("lk", "hs", "fb", "tvl1", "dis"), default="lk"

@@ -515,9 +515,10 @@ def _run_chains(
 
 
 def main(argv=None) -> None:
-    from cuda_optical_flow_2_tpu.cli import apply_platform_env
+    from cuda_optical_flow_2_tpu.cli import xla_only
+    from cuda_optical_flow_2_tpu.utils.profiling import enable_compile_cache
 
-    apply_platform_env()
+    enable_compile_cache()
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--dataset", required=True, help="dataset directory")
     ap.add_argument(
@@ -627,7 +628,6 @@ def main(argv=None) -> None:
     from cuda_optical_flow_2_tpu.models import pyramidal_flow
 
     if args.preset is not None:
-        import dataclasses
 
         import cuda_optical_flow_2_tpu.models as models
 
@@ -655,7 +655,7 @@ def main(argv=None) -> None:
         if cfg is None:
             cfg = getattr(of, args.preset.upper())
         if args.no_pallas:
-            cfg = dataclasses.replace(cfg, use_pallas=False)
+            cfg = xla_only(cfg)
         margin = args.margin if args.margin is not None else getattr(
             cfg, "window", getattr(cfg, "winsize", 16)
         )

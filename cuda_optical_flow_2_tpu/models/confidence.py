@@ -8,7 +8,7 @@ sum Iy^2]] is the classic trackability measure (Shi-Tomasi "good features",
 OpenCV's minEigThreshold) — ~0 in flat or single-edge (aperture-problem)
 regions, large on corners/texture where the 2x2 solve is well-conditioned.
 
-TPU-first: gradients + one stacked windowed reduction + elementwise
+Design: gradients + one stacked windowed reduction + elementwise
 eigenvalue math, all jittable; combine with
 models/consistency.occlusion_mask for a motion-dependent signal.
 """

@@ -7,7 +7,7 @@ backward warping the reverse flow and testing the cycle residual is the
 standard occlusion test (|F_fw(x) + F_bw(x + F_fw(x))| small where the
 estimate is trustworthy).
 
-TPU-first: the check is a warp (the same backward-warp primitive the models
+Design: the check is a warp (the same backward-warp primitive the models
 use) plus elementwise math — it jits into the surrounding pipeline, and
 ``consistent_flow`` runs forward and backward estimation as one program so
 XLA can schedule the two independent passes back to back on-device.

@@ -4,7 +4,7 @@ NOT in the reference (Kr-Stam/CUDA_Optical_Flow_2 implements pyramidal
 Lucas-Kanade only); provided so the framework covers the modern realtime
 method: Kroeger, Timofte, Dai & Van Gool, *Fast Optical Flow using Dense
 Inverse Search* (ECCV 2016) — the algorithm behind OpenCV's
-``DISOpticalFlow``.  Its three ingredients, re-designed TPU-first:
+``DISOpticalFlow``.  Its three ingredients, re-designed for dense arrays:
 
 * **Inverse search = mean-normalized LK steps.**  The paper's per-patch
   Gauss-Newton descent minimizes the *mean-normalized* SSD between the
@@ -12,23 +12,22 @@ Inverse Search* (ECCV 2016) — the algorithm behind OpenCV's
   additive illumination changes cancel).  The normal equations of that
   residual are the ordinary LK equations with every window sum replaced by
   the *centered* (covariance) sum — ops/window.centered_structure_tensor_sums
-  (XLA) and the ``centered=True`` mode of the fused level-step kernel
-  (kernels/lk_step_fused.py), which adds four box sums in VMEM.
+  (XLA) and the ``centered=True`` mode of the fused residual kernel
+  (kernels/lk_fused.py), which adds four window sums on its tile.
 * **Stride-1 patch grid (densification-free).**  The paper computes one
   displacement per ps x ps patch on a stride-s grid and then *densifies* by
   error-weighted blending of the overlapping estimates.  Here the grid runs
-  at stride 1 — every pixel is its own patch center — which on TPU is the
-  idiomatic mapping: the window sums are separable (O(1)/pixel, shift-
-  doubling in VMEM), strided lane slices are relayouts (docs/PERF.md
-  finding 3), and at stride 1 the densification pass is the identity.
+  at stride 1 — every pixel is its own patch center — which is the dense-
+  array mapping: the window sums are per-pixel stencils computed for every
+  pixel anyway, and at stride 1 the densification pass is the identity.
 * **Variational refinement = total-flow Horn-Schunck at the warp point.**
   The paper follows the search with a few Brox-style variational iterations.
   Here: Jacobi relaxation of the TOTAL flow with the data term linearized at
   the warped position (``it_warped - ix*u0 - iy*v0``), quadratic penalties
-  instead of Charbonnier (a documented substitution), riding the time-tiled
-  Pallas relaxation kernel (kernels/hs_sweep.py) via its ``it_offset``
-  plane.  Relaxing the total flow (not the residual) is what fills
-  textureless regions from their neighborhoods.
+  instead of Charbonnier (a documented substitution), as a ``lax.scan`` of
+  Jacobi sweeps with the offset folded into the data term.  Relaxing the
+  total flow (not the residual) is what fills textureless regions from
+  their neighborhoods.
 
 The temporal term defaults to the smoothed Dt_3x3 difference
 (``temporal_kernel="dt3"``), NOT the paper's raw patch difference
@@ -55,16 +54,11 @@ from jax import lax
 from cuda_optical_flow_2_tpu.config import BilateralConfig, LKConfig
 from cuda_optical_flow_2_tpu.constants import MASKS
 from cuda_optical_flow_2_tpu.models.horn_schunck import (
-    _DXC,
-    _DYC,
     _avg3x3,
     _robust_relax_xla,
 )
-from cuda_optical_flow_2_tpu.models.lucas_kanade import (
-    _interpret_forced,
-    _pick_warp,
-    _validate,
-)
+from cuda_optical_flow_2_tpu.kernels import lk_fused, residual_impl
+from cuda_optical_flow_2_tpu.models.lucas_kanade import _validate, warp_fn
 from cuda_optical_flow_2_tpu.ops.conv import stencil2d
 from cuda_optical_flow_2_tpu.ops.gradients import (
     SOBEL_GAIN,
@@ -139,9 +133,9 @@ class DISConfig:
       det_eps: |det| guard for the 2x2 solve (see LKConfig.det_eps).
       window_method: XLA-path windowed-sum backend (see LKConfig).
       prefilter: optional joint-bilateral pre-smoothing, as in LKConfig.
-      use_pallas: fused level-step kernel + select warp + time-tiled
-        refinement on TPU; pure-XLA twins elsewhere.
-      max_displacement / d_local / c_max: warp budget knobs, as in LKConfig.
+      use_pallas: run the inverse-search step through the fused residual
+        kernel where kernels.residual_impl allows it (see LKConfig).
+      max_displacement: spatial-TP halo budget, as in LKConfig.
     """
 
     levels: int = 5
@@ -165,12 +159,6 @@ class DISConfig:
     prefilter: Optional[BilateralConfig] = None
     use_pallas: bool = True
     max_displacement: int = 32
-    d_local: int = 7
-    c_max: int = 1
-    # In-kernel 2x flow upsample: measured a throughput wash for DIS
-    # (136.3 vs 135.7 fps at the 1080p default) and a net loss for LK, so
-    # off by default — see LKConfig.fused_half_upsample.
-    fused_half_upsample: bool = False
 
     def __post_init__(self) -> None:
         if self.levels < 1:
@@ -206,10 +194,6 @@ class DISConfig:
             raise ValueError(f"unknown temporal_kernel {self.temporal_kernel!r}")
         if self.window_weights not in ("box", "tri", "gauss"):
             raise ValueError(f"unknown window_weights {self.window_weights!r}")
-        if self.c_max < 0:
-            raise ValueError(f"c_max must be >= 0, got {self.c_max}")
-        if self.d_local < 1:
-            raise ValueError(f"d_local must be >= 1, got {self.d_local}")
 
 
 def _lk_like(config: DISConfig) -> LKConfig:
@@ -232,9 +216,6 @@ def _lk_like(config: DISConfig) -> LKConfig:
         max_displacement=config.max_displacement,
         prefilter=config.prefilter,
         use_pallas=config.use_pallas,
-        d_local=config.d_local,
-        c_max=config.c_max,
-        fused_half_upsample=config.fused_half_upsample,
     )
 
 
@@ -262,17 +243,11 @@ def _dis_residual_xla(
 def _dis_residual(
     prev: jax.Array, warped: jax.Array, config: DISConfig
 ) -> jax.Array:
-    if config.use_pallas:
-        from cuda_optical_flow_2_tpu.kernels import lk_fused
-
-        if lk_fused.supported(prev, _lk_like(config)):
-            return lk_fused.lk_residual(
-                prev,
-                warped,
-                _lk_like(config),
-                interpret=lk_fused.interpret_forced(),
-                centered=config.mean_normalize,
-            )
+    lk_like = _lk_like(config)
+    if residual_impl(jax.default_backend(), prev.dtype, prev.shape, lk_like) == "triton":
+        return lk_fused.lk_residual(
+            prev, warped, lk_like, centered=config.mean_normalize
+        )
     return _dis_residual_xla(prev, warped, config)
 
 
@@ -296,23 +271,15 @@ def _refine(
     pixel's data term and the relaxation converges to a uniformly biased
     flow (measured: EPE 0.5 -> 4.2 under a +25 offset) — exactly the
     failure the DIS residual exists to prevent.  The mean is folded into
-    the precomputed offset plane, so both backends (time-tiled Pallas
-    sweep and the XLA scan) see the identical centered data term.
+    the precomputed offset plane of the relaxation's data term.
     """
-    lk_like = _lk_like(config)
-    # Clamp unconditionally so u0 in the linearization is the flow the warp
-    # actually applied on every backend (the Pallas select warp clamps
-    # internally; the XLA gather warp does not).
+    # Relax around the flow clamped to the warp budget (max_displacement),
+    # which is also what the spatial-TP band form can reach in its halo.
     flow = jnp.clip(flow, -config.max_displacement, config.max_displacement)
-    warp, _ = _pick_warp(nxt, lk_like)
-    warped = warp(nxt, flow)
+    warped = warp_fn(_lk_like(config))(nxt, flow)
 
-    # Everything feeding the Pallas relaxation uses layout-safe forms:
-    # shift-form stencils instead of lax.conv and the cumsum window backend
-    # instead of sep_conv.  A conv whose output layout is pinned by the
-    # downstream Pallas call switches XLA to a ~13x slower emitter plus a
-    # relayout (docs/PERF.md finding 2) — measured 174 ms -> ~2 ms for this
-    # function at 1080p.
+    # Shift-form stencils and integral-image window sums: both fuse into
+    # plain elementwise loops.
     sscale = 1.0 / SOBEL_GAIN
     ix = stencil2d(prev, MASKS["sobel_x"] * sscale)
     iy = stencil2d(prev, MASKS["sobel_y"] * sscale)
@@ -326,22 +293,6 @@ def _refine(
         )
 
     robust = _robust_eps(config)
-    if config.use_pallas:
-        from cuda_optical_flow_2_tpu.kernels import hs_sweep
-
-        if hs_sweep.supported(prev):
-            return hs_sweep.hs_relax(
-                prev,
-                warped,
-                flow,
-                iterations=config.refine_iterations,
-                alpha=config.refine_alpha,
-                temporal_kernel=config.temporal_kernel,
-                interpret=hs_sweep.interpret_forced(),
-                it_offset=off,
-                robust=robust,
-            )
-
     tmask = MASKS[config.temporal_kernel]
     it = stencil2d(warped - prev, tmask / tmask.sum()) + off
     if robust is not None:
@@ -373,52 +324,17 @@ def dis_level(
     nxt: jax.Array,
     flow_init: jax.Array | None,
     config: DISConfig,
-    flow_init_half: bool = False,
 ) -> jax.Array:
-    """One pyramid level: inverse-search GN steps + variational refinement.
-
-    ``flow_init_half``: ``flow_init`` is the coarser level's flow and the 2x
-    upsample runs inside the fused kernel (same contract as
-    models/lucas_kanade.lk_level).
-    """
-    lk_like = _lk_like(config)
+    """One pyramid level: inverse-search GN steps + variational refinement."""
+    warp = warp_fn(_lk_like(config))
     flow = flow_init
-    fused = False
-    if config.use_pallas:
-        from cuda_optical_flow_2_tpu.kernels import lk_step_fused
-
-        fused = lk_step_fused.supported(prev, lk_like) or _interpret_forced()
-    if flow_init_half and not fused:
-        flow = upsample_flow(flow, prev.shape[-2:])
-
-    for it in range(config.iterations):
+    for _ in range(config.iterations):
         if flow is None:
             # Coarsest start: zero displacement, so the "warped" frame is
             # the frame itself — one plain centered residual step.
             flow = _dis_residual(prev, nxt, config)
             continue
-        if fused:
-            from cuda_optical_flow_2_tpu.kernels import lk_step_fused
-
-            flow = lk_step_fused.lk_level_step(
-                prev,
-                nxt,
-                flow,
-                lk_like,
-                interpret=_interpret_forced(),
-                centered=config.mean_normalize,
-                flow_half=flow_init_half and it == 0,
-            )
-            continue
-        warp, clamps = _pick_warp(nxt, lk_like)
-        if clamps:
-            # Accumulate on the flow the warp actually applied (see
-            # models/lucas_kanade.lk_level).
-            flow = jnp.clip(
-                flow, -config.max_displacement, config.max_displacement
-            )
-        warped = warp(nxt, flow)
-        flow = flow + _dis_residual(prev, warped, config)
+        flow = flow + _dis_residual(prev, warp(nxt, flow), config)
 
     if config.refine_iterations > 0:
         flow = _refine(prev, nxt, flow, config)
@@ -444,21 +360,11 @@ def dis_coarse_to_fine(
     bilinearly upsampled the rest of the way (the paper's finest-scale
     speed knob).
     """
-    from cuda_optical_flow_2_tpu.models.lucas_kanade import (
-        _fused_half_upsample,
-    )
-
     flow = init_flow
-    lk_like = _lk_like(config)
     for k in range(config.levels - 1, config.finest_level - 1, -1):
-        half = False
         if flow is not None:
-            half = _fused_half_upsample(prev_pyr[k], flow, lk_like)
-            if not half:
-                flow = upsample_flow(flow, prev_pyr[k].shape[-2:])
-        flow = dis_level(
-            prev_pyr[k], next_pyr[k], flow, config, flow_init_half=half
-        )
+            flow = upsample_flow(flow, prev_pyr[k].shape[-2:])
+        flow = dis_level(prev_pyr[k], next_pyr[k], flow, config)
     if config.finest_level > 0:
         flow = upsample_flow(flow, prev_pyr[0].shape[-2:])
     return flow
@@ -481,6 +387,6 @@ def pyramidal_dis(
 pyramidal_dis_jit = jax.jit(pyramidal_dis, static_argnames=("config",))
 
 # Realtime serving preset: skip the full-resolution solve (finest_level=1)
-# like OpenCV's fast presets (accuracy/speed measured in
-# docs/studies/dis_accuracy.py; TPU timings in docs/PERF.md).
+# like OpenCV's fast presets (accuracy measured in
+# docs/studies/dis_accuracy.py).
 DIS_REALTIME = DISConfig(levels=5, finest_level=1)

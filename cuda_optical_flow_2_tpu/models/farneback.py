@@ -9,21 +9,15 @@ move between frames (Farnebäck 2003).  Compared to LK it is derivative-free
 (the expansion is a weighted least-squares fit, more robust to noise) and its
 data term tolerates larger sub-window motion.
 
-TPU-first formulation — every stage reuses the framework's layout-safe
-primitives:
+Formulation — every stage reuses the framework's shared primitives:
 
-* polynomial expansion: separable shifted-add correlations (no lax.conv —
-  docs/PERF.md finding 2);
+* polynomial expansion: separable shifted-add correlations;
 * per-iteration warp, two formulations (``FBConfig.warp_planes``):
   - "image" (default): backward-warp the next FRAME by the current flow and
-    re-expand — on TPU ONE fused Pallas kernel per iteration
-    (kernels/fb_step_fused.py: select-warp + in-VMEM re-expansion + window
-    sums + solve).  Moves 1 plane instead of 5 through the select-loops
-    (the dominant cost: 5.9 ms per 5-plane warp at 1080p, docs/PERF.md) and
-    measured equal-or-better accuracy;
+    re-expand.  Moves 1 plane instead of 5 through the warp and measured
+    equal-or-better accuracy;
   - "coeff": warp the five expansion coefficient planes (the
-    cv::calcOpticalFlowFarneback formulation) via the batched Pallas
-    select-warp, then the fused win_solve kernel;
+    cv::calcOpticalFlowFarneback formulation);
 * the displacement normal equations: 5 windowed sums (box via separable
   ones-correlations, or a true Gaussian window) + a guarded 2x2 solve —
   structurally the LK solve on different matrices.
@@ -79,16 +73,12 @@ class FBConfig:
       gaussian_window: weight the window by a Gaussian (sigma = winsize/4,
         OpenCV's convention) instead of a flat box.
       det_eps: |det| guard for the 2x2 solve (0 flow where singular).
-      use_pallas: dispatch to the Pallas kernels (fused step for "image",
-        select-warp + win_solve for "coeff").
-      max_displacement / d_local / c_max: warp displacement budget,
-        per-tile scan range, and row-correction range (same semantics as
-        LKConfig).
+      max_displacement: warp displacement budget (flow is clamped to it
+        before each warp) and spatial-TP halo budget, as in LKConfig.
       warp_planes: what the per-iteration warp moves.  "image" (default)
         backward-warps the next FRAME and re-expands it — 1 plane moved
-        instead of 5, measured equal-or-better accuracy (docs/PERF.md), and
-        the formulation the fused kernel (kernels/fb_step_fused.py)
-        implements.  "coeff" warps the five expansion coefficient planes
+        instead of 5, measured equal-or-better accuracy (docs/PERF.md).
+        "coeff" warps the five expansion coefficient planes
         (cv::calcOpticalFlowFarneback's formulation).
       prefilter: optional joint-bilateral pre-smoothing, as in LKConfig.
     """
@@ -100,10 +90,7 @@ class FBConfig:
     winsize: int = 15
     gaussian_window: bool = False
     det_eps: float = 1e-6
-    use_pallas: bool = True
     max_displacement: int = 32
-    d_local: int = 7
-    c_max: int = 1
     warp_planes: str = "image"
     prefilter: Optional[BilateralConfig] = None
 
@@ -116,8 +103,6 @@ class FBConfig:
             raise ValueError(f"winsize must be odd, got {self.winsize}")
         if self.poly_sigma <= 0:
             raise ValueError(f"poly_sigma must be > 0, got {self.poly_sigma}")
-        if self.c_max < 0:
-            raise ValueError(f"c_max must be >= 0, got {self.c_max}")
         if self.warp_planes not in ("image", "coeff"):
             raise ValueError(
                 f"warp_planes must be 'image' or 'coeff', got {self.warp_planes}"
@@ -131,15 +116,7 @@ def _lk_like(config: FBConfig):
 
 
 def _expand(frame: jax.Array, config: FBConfig) -> tuple[jax.Array, ...]:
-    """Polynomial expansion, through the Pallas kernel when available."""
-    if config.use_pallas:
-        from cuda_optical_flow_2_tpu.kernels import poly_exp_fused
-
-        if poly_exp_fused.supported(frame, config.poly_n):
-            return poly_exp_fused.poly_expansion_kernel(
-                frame, config.poly_n, config.poly_sigma,
-                interpret=poly_exp_fused.interpret_forced(),
-            )
+    """Polynomial expansion of one frame (ops/poly_exp.py)."""
     return poly_expansion(frame, config.poly_n, config.poly_sigma)
 
 
@@ -163,24 +140,22 @@ def fb_level(
     :func:`poly_expansion`; ``flow`` is the prior total flow (or None).
     Returns the refined TOTAL flow (..., H, W, 2).
     """
-    from cuda_optical_flow_2_tpu.models.lucas_kanade import _pick_warp
+    from cuda_optical_flow_2_tpu.models.lucas_kanade import warp_fn
 
     bx1, by1, axx1, ayy1, axy1 = exp1
     planes2 = jnp.stack(exp2)  # (5, ..., H, W)
-    lk_like = _lk_like(config)
+    warp = warp_fn(_lk_like(config))
 
     for _ in range(config.iterations):
         if flow is None:
             w_bx, w_by, w_axx, w_ayy, w_axy = exp2
             u = v = jnp.zeros_like(bx1)
         else:
-            # Budget clamp applies on both warp backends so the 'coeff' and
-            # 'image' formulations agree beyond float noise (the Pallas
-            # select-warp additionally requires it for halo correctness).
+            # The budget clamp keeps the 'coeff' and 'image' formulations
+            # in agreement beyond float noise.
             flow = jnp.clip(
                 flow, -config.max_displacement, config.max_displacement
             )
-            warp, _ = _pick_warp(planes2, lk_like)
             fb = jnp.broadcast_to(flow, planes2.shape + (2,))
             w_bx, w_by, w_axx, w_ayy, w_axy = warp(planes2, fb)
             u, v = flow[..., 0], flow[..., 1]
@@ -196,22 +171,7 @@ def fb_level(
 
 
 def _window_solve(prods, config: FBConfig) -> jax.Array:
-    """Window the normal-equation products and solve for the flow.
-
-    On TPU with a box window this is one fused Pallas kernel
-    (kernels/win_solve.py); the XLA fallback (separable window + elementwise
-    solve) also serves the Gaussian-window variant.
-    """
-    if config.use_pallas and not config.gaussian_window:
-        from cuda_optical_flow_2_tpu.kernels import win_solve
-
-        if win_solve.supported(prods[0], config.winsize):
-            return win_solve.window_solve(
-                *prods,
-                window=config.winsize,
-                det_eps=config.det_eps,
-                interpret=win_solve.interpret_forced(),
-            )
+    """Window the normal-equation products and solve for the flow."""
     sums = _window(jnp.stack(prods), config)
     return solve_normal_eqs(sums, config.det_eps)
 
@@ -224,8 +184,7 @@ def fb_normal_eq_products(exp1, warped_exp, u, v):
     used.  Returns the 5 pre-window products (g11, g12, g22, h1, h2).
     Shared by fb_level (coeff form), fb_level_image, and the sharded band
     form (parallel/spatial_models.py) so the algebra cannot drift between
-    the unsharded/TP and image/coeff parity twins; the fused Pallas kernel
-    (kernels/fb_step_fused.py) carries the in-VMEM transcription.
+    the unsharded/TP and image/coeff parity twins.
     """
     bx1, by1, axx1, ayy1, axy1 = exp1
     w_bx, w_by, w_axx, w_ayy, w_axy = warped_exp
@@ -270,28 +229,15 @@ def fb_level_image(
     """``config.iterations`` refinements, image-warp formulation.
 
     Each iteration backward-warps the next FRAME by the current total flow,
-    re-expands the warped band, and solves the windowed normal equations —
-    on TPU as ONE fused Pallas kernel (kernels/fb_step_fused.py).
+    re-expands the warped band, and solves the windowed normal equations.
     """
-    from cuda_optical_flow_2_tpu.kernels import fb_step_fused
-    from cuda_optical_flow_2_tpu.models.lucas_kanade import _pick_warp
+    from cuda_optical_flow_2_tpu.models.lucas_kanade import warp_fn
 
     bx1, by1, axx1, ayy1, axy1 = exp1
-    use_fused = config.use_pallas and fb_step_fused.supported(nxt, config)
-    warp, _ = _pick_warp(nxt, _lk_like(config))
+    warp = warp_fn(_lk_like(config))
 
     for _ in range(config.iterations):
-        first = flow is None
-        if use_fused:
-            f_in = (
-                jnp.zeros(nxt.shape + (2,), jnp.float32) if first else flow
-            )
-            flow = fb_step_fused.fb_level_step(
-                nxt, exp1, f_in, config, first=first,
-                interpret=fb_step_fused.interpret_forced(),
-            )
-            continue
-        if first:
+        if flow is None:
             w_bx, w_by, w_axx, w_ayy, w_axy = _expand(nxt, config)
             u = v = jnp.zeros_like(bx1)
         else:

@@ -6,13 +6,13 @@ method: a GLOBAL variational flow with a smoothness prior, where LK is a
 local least-squares fit.  HS fills in textureless regions (where LK's
 structure tensor is singular) by propagating flow from neighbors.
 
-TPU-first formulation: the Jacobi relaxation
+Formulation: the Jacobi relaxation
 
     u <- u_bar - Ix (Ix u_bar + Iy v_bar + It) / (alpha^2 + Ix^2 + Iy^2)
     v <- v_bar - Iy (Ix u_bar + Iy v_bar + It) / (alpha^2 + Ix^2 + Iy^2)
 
-is a 3x3 stencil (the neighbor average u_bar) plus elementwise math — pure
-VPU work that XLA fuses into a few kernels; the fixed-iteration loop is a
+is a 3x3 stencil (the neighbor average u_bar) plus elementwise math, which
+XLA fuses into a few kernels; the fixed-iteration loop is a
 ``lax.scan`` (static trip count, no data-dependent control flow).  The
 pyramidal driver reuses the LK scaffolding: the same Gaussian pyramid,
 exact-2x flow upsampler, and backward warp (ops/ + models/lucas_kanade).
@@ -67,14 +67,7 @@ class HSConfig:
       levels: pyramid depth (1 = original single-scale Horn-Schunck).
       temporal_kernel: as in LKConfig ("gauss3" recommended).
       prefilter: optional joint-bilateral pre-smoothing, as in LKConfig.
-      use_pallas: use the time-tiled Pallas relaxation kernel on TPU
-        (kernels/hs_sweep.py — K sweeps per HBM round trip instead of one)
-        and the select-based Pallas warp in the pyramidal driver; the XLA
-        scan/gather path is the fallback and the correctness twin.
-      max_displacement / d_local / c_max: per-level warp displacement
-        budget, per-tile scan range, and row-choice correction range for the
-        Pallas warp (same semantics as LKConfig; raise c_max to 2 for
-        bit-exact warps on fast-varying flows — docs/PERF.md c_max study).
+      max_displacement: spatial-TP halo budget, as in LKConfig.
     """
 
     alpha: float = 10.0
@@ -82,16 +75,13 @@ class HSConfig:
     levels: int = 3
     temporal_kernel: str = "gauss3"
     prefilter: Optional[BilateralConfig] = None
-    use_pallas: bool = True
     max_displacement: int = 32
-    d_local: int = 7
-    c_max: int = 1
     # Robust (Charbonnier) penalties via lagged diffusivity — the same
-    # mechanism as DISConfig.refine_penalty (kernels/hs_sweep robust mode):
-    # per-pixel data/smoothness weights frozen per time-tiled chunk,
-    # eps -> inf = quadratic.  Robust HS is a fast "TV-lite" operating
-    # point: discontinuity-preserving smoothing at HS throughput (measured
-    # on the layered benchmark — docs/PERF.md).  Note the pyramidal driver
+    # mechanism as DISConfig.refine_penalty: per-pixel data/smoothness
+    # weights frozen per chunk of ROBUST_CHUNK sweeps, eps -> inf =
+    # quadratic.  Robust HS is a "TV-lite" operating point:
+    # discontinuity-preserving smoothing at HS cost (accuracy on the
+    # layered benchmark — docs/PERF.md).  Note the pyramidal driver
     # relaxes the per-level RESIDUAL, so the smoothness weight sees the
     # residual's gradients; motion-boundary steps survive coarse-to-fine
     # into the residual, which is what the weight needs.
@@ -104,8 +94,6 @@ class HSConfig:
             raise ValueError(f"alpha must be > 0, got {self.alpha}")
         if self.iterations < 1 or self.levels < 1:
             raise ValueError("iterations and levels must be >= 1")
-        if self.c_max < 0:
-            raise ValueError(f"c_max must be >= 0, got {self.c_max}")
         if self.penalty not in ("quadratic", "charbonnier"):
             raise ValueError(f"unknown penalty {self.penalty!r}")
         if self.eps_data <= 0 or self.eps_smooth <= 0:
@@ -124,20 +112,6 @@ def hs_level(
     a coarser level (the returned flow then includes ``flow_init``).
     """
     robust = _robust_eps(config)
-    if config.use_pallas:
-        from cuda_optical_flow_2_tpu.kernels import hs_sweep
-
-        if hs_sweep.supported(prev):
-            return hs_sweep.hs_relax(
-                prev,
-                nxt,
-                flow_init,
-                iterations=config.iterations,
-                alpha=config.alpha,
-                temporal_kernel=config.temporal_kernel,
-                interpret=hs_sweep.interpret_forced(),
-                robust=robust,
-            )
     ix, iy = spatial_gradients(prev, normalize=True)
     it = temporal_gradient(prev, nxt, config.temporal_kernel, normalize=True)
 
@@ -172,10 +146,8 @@ def _robust_eps(config) -> tuple[float, float] | None:
 def _avg3x3(x: jax.Array) -> jax.Array:
     """HS neighbor average as shifted adds (zero-padded, == conv2d(HS_AVG_3X3)).
 
-    A per-sweep ``lax.conv`` hits the slow TPU conv emitter inside the scan
-    (measured 810 ms for 50x3 sweeps at 1080p vs ~30 ms in this form — the
-    same pathology as the pyramid, docs/PERF.md finding 2); pad-and-slice
-    shifts fuse with the surrounding elementwise update instead.
+    Pad-and-slice shifts fuse with the surrounding elementwise update of
+    each sweep.
     """
     pad = [(0, 0)] * (x.ndim - 2) + [(1, 1), (1, 1)]
     xp = jnp.pad(x, pad)
@@ -194,9 +166,11 @@ def _avg3x3(x: jax.Array) -> jax.Array:
     return cross * jnp.asarray(1 / 6, x.dtype) + diag * jnp.asarray(1 / 12, x.dtype)
 
 
-# Central-difference masks for the lagged-diffusivity flow gradient; the
-# sign convention matches kernels/hs_sweep's rolls (du[x] = (u[x-1] -
-# u[x+1])/2 — only the squared magnitude is used).
+# Sweeps per lagged-weight chunk of the Charbonnier relaxation.
+ROBUST_CHUNK = 16
+
+# Central-difference masks for the lagged-diffusivity flow gradient
+# (du[x] = (u[x-1] - u[x+1])/2 — only the squared magnitude is used).
 _DXC = np.array([[0.5, 0.0, -0.5]], np.float32)
 _DYC = _DXC.T
 
@@ -210,17 +184,13 @@ def _robust_relax_xla(
     alpha: float,
     robust: tuple[float, float],
 ) -> jax.Array:
-    """XLA twin of the kernel's Charbonnier mode (kernels/hs_sweep).
+    """Charbonnier relaxation by lagged diffusivity.
 
     Shared by robust HS (HSConfig.penalty) and robust DIS refinement
-    (DISConfig.refine_penalty).  Identical chunk semantics to the kernel:
-    lagged weights recomputed from the current flow every
-    ``hs_sweep.MAX_SWEEPS`` sweeps and frozen within the chunk, so
-    interpret-mode and XLA backends see the same outer/inner iteration
-    split.  Zero-shift boundary throughout (stencil2d / _avg3x3), matching
-    the kernel's re-zeroed pad ring.
+    (DISConfig.refine_penalty).  The lagged weights are recomputed from the
+    current flow every ``ROBUST_CHUNK`` sweeps and frozen within the chunk.
+    Zero-shift boundary throughout (stencil2d / _avg3x3).
     """
-    from cuda_optical_flow_2_tpu.kernels import hs_sweep
     from cuda_optical_flow_2_tpu.ops.conv import stencil2d
 
     ed, es = robust
@@ -248,7 +218,7 @@ def _robust_relax_xla(
             v = v_bar - iy * rate
         return jnp.stack([u, v], axis=-1)
 
-    k = min(hs_sweep.MAX_SWEEPS, iterations)
+    k = min(ROBUST_CHUNK, iterations)
     n_full, rem = divmod(iterations, k)
     uv = flow
     for _ in range(n_full):
@@ -265,21 +235,15 @@ def horn_schunck(prev: jax.Array, nxt: jax.Array, config: HSConfig) -> jax.Array
 
 def lk_preproc_config(config):
     """LKConfig view of any model config, for the shared preprocess/warp
-    plumbing.  Reads the warp-dispatch knobs every family carries (levels,
-    prefilter, use_pallas, max_displacement, d_local) plus any it also
-    defines (c_max) — ONE place to thread new knobs through, used by the
+    plumbing: the knobs every family carries (levels, prefilter,
+    max_displacement) — ONE place to thread new knobs through, used by the
     HS/FB/TVL1 families alike."""
-    fields = dict(
+    return dataclasses.replace(
+        _LK_PREPROC,
         levels=config.levels,
         prefilter=config.prefilter,
-        use_pallas=config.use_pallas,
         max_displacement=config.max_displacement,
-        d_local=config.d_local,
     )
-    for opt in ("c_max",):
-        if hasattr(config, opt):
-            fields[opt] = getattr(config, opt)
-    return dataclasses.replace(_LK_PREPROC, **fields)
 
 
 def _lk_like(config: HSConfig):
@@ -301,14 +265,12 @@ def hs_coarse_to_fine(
 ) -> jax.Array:
     """Coarse-to-fine HS over prebuilt pyramids; returns the finest flow.
 
-    Uses the same warp dispatch as the LK pipeline (select-based Pallas warp
-    on TPU — the XLA gather warp alone costs ~68 ms at 1080p, docs/PERF.md
-    finding 1); the warped residual is relaxed at each level and accumulated
-    on the carried flow.
+    Uses the same backward warp as the LK pipeline; the warped residual is
+    relaxed at each level and accumulated on the carried flow.
     """
-    from cuda_optical_flow_2_tpu.models.lucas_kanade import _pick_warp
+    from cuda_optical_flow_2_tpu.models.lucas_kanade import warp_fn
 
-    lk_like = _lk_like(config)
+    warp = warp_fn(_lk_like(config))
     flow = init_flow
     for k in range(config.levels - 1, -1, -1):
         p, n = prev_pyr[k], next_pyr[k]
@@ -316,13 +278,6 @@ def hs_coarse_to_fine(
             flow = hs_level(p, n, None, config)
         else:
             flow = upsample_flow(flow, p.shape[-2:])
-            warp, clamps = _pick_warp(n, lk_like)
-            if clamps:
-                # Accumulate on the flow the warp actually applied (see the
-                # same-named logic in models/lucas_kanade.pyramidal_lk).
-                flow = jnp.clip(
-                    flow, -config.max_displacement, config.max_displacement
-                )
             warped = warp(n, flow)
             flow = flow + hs_level(p, warped, None, config)
     return flow
@@ -332,7 +287,7 @@ def pyramidal_hs(prev: jax.Array, nxt: jax.Array, config: HSConfig) -> jax.Array
     """Coarse-to-fine Horn-Schunck: handles motion beyond one pixel/iteration.
 
     Same scaffolding as the LK pipeline: Gaussian pyramids, exact-2x flow
-    upsampling, Pallas warp; see :func:`hs_coarse_to_fine`.
+    upsampling, bilinear warp; see :func:`hs_coarse_to_fine`.
     """
     return hs_coarse_to_fine(
         hs_preprocess(prev, config), hs_preprocess(nxt, config), config

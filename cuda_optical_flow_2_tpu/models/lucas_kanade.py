@@ -1,6 +1,6 @@
 """Pyramidal Lucas-Kanade dense optical flow — the production pipeline.
 
-TPU-native replacement for the reference's orchestration layer:
+Accelerator-resident replacement for the reference's orchestration layer:
 gpu::calc_opt_flow (OptFlowGpu.cu:1909-1979) and the coarse-to-fine driver
 loop in main (main.cu:256-262).  Differences by design (SURVEY.md section 7):
 
@@ -14,9 +14,9 @@ loop in main (main.cu:256-262).  Differences by design (SURVEY.md section 7):
   reproduces that exact composition for parity checks.
 * The 2x2 solve is guarded (|det| < eps -> 0) instead of dividing by a raw,
   possibly zero determinant (OptFlowGpu.cu:1835).
-* The hot per-level stage (gradients -> window sums -> solve) dispatches to
-  the fused Pallas kernel on TPU (kernels/lk_fused.py) and to the pure-XLA
-  ops elsewhere.
+* The hot per-level stage (gradients -> window sums -> solve) runs as one
+  fused Pallas-Triton kernel on the GPU (kernels/lk_fused.py) and as the
+  pure-XLA ops elsewhere; kernels.residual_impl makes the choice.
 
 All entry points accept leading batch dims: images (..., H, W), flows
 (..., H, W, 2).
@@ -24,12 +24,11 @@ All entry points accept leading batch dims: images (..., H, W), flows
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 
 from cuda_optical_flow_2_tpu.config import LKConfig
+from cuda_optical_flow_2_tpu.kernels import lk_fused, residual_impl
 from cuda_optical_flow_2_tpu.ops.bilateral import bilateral_filter
 from cuda_optical_flow_2_tpu.ops.gradients import spatial_gradients, temporal_gradient
 from cuda_optical_flow_2_tpu.ops.pyramid import build_pyramid
@@ -68,13 +67,8 @@ def _lk_residual_xla(
 
 
 def _lk_residual(prev: jax.Array, nxt: jax.Array, config: LKConfig) -> jax.Array:
-    if config.use_pallas:
-        from cuda_optical_flow_2_tpu.kernels import lk_fused
-
-        if lk_fused.supported(prev, config):
-            return lk_fused.lk_residual(
-                prev, nxt, config, interpret=lk_fused.interpret_forced()
-            )
+    if residual_impl(jax.default_backend(), prev.dtype, prev.shape, config) == "triton":
+        return lk_fused.lk_residual(prev, nxt, config)
     return _lk_residual_xla(prev, nxt, config)
 
 
@@ -83,7 +77,6 @@ def lk_level(
     nxt: jax.Array,
     flow_init: jax.Array | None,
     config: LKConfig,
-    flow_init_half: bool = False,
 ) -> jax.Array:
     """One pyramid level: warp -> gradients -> window sums -> solve (+iterate).
 
@@ -92,11 +85,6 @@ def lk_level(
     rather than the reference's (0,0)-sampling nearest shift.
     ``config.iterations`` > 1 re-warps with the refined flow and re-solves,
     which the reference never does but BASELINE config 2 requires.
-
-    ``flow_init_half``: ``flow_init`` is the coarser level's flow at half
-    resolution and the 2x upsample runs inside the fused kernel (callers
-    gate on lk_step_fused.supported_half via coarse_to_fine's dispatch);
-    the non-fused paths upsample here as a fallback.
     """
     if flow_init is None:
         # Coarsest level: no prior flow, so no warp (reference:
@@ -106,41 +94,12 @@ def lk_level(
             return flow
         return lk_level(prev, nxt, flow, _with_iterations(config, config.iterations - 1))
     flow = flow_init
-    if config.use_pallas and config.warp_mode != "none":
-        from cuda_optical_flow_2_tpu.kernels import lk_step_fused
-
-        if lk_step_fused.supported(prev, config) or (
-            _interpret_forced() and config.warp_mode == "bilinear"
-        ):
-            # Fully-fused path: warp + gradients + window sums + solve +
-            # accumulate in one kernel per iteration (accumulation on the
-            # applied flow happens in-kernel).  The first iteration may take
-            # the coarser flow directly (flow_init_half) — the 2x upsample
-            # then runs in-kernel.
-            for it in range(config.iterations):
-                flow = lk_step_fused.lk_level_step(
-                    prev, nxt, flow, config, interpret=_interpret_forced(),
-                    flow_half=flow_init_half and it == 0,
-                )
-            return flow
-    if flow_init_half:
-        # non-fused fallback: materialize the upsample the caller skipped
-        flow = upsample_flow(flow, prev.shape[-2:])
     if config.warp_mode == "none":
         # Without warping, re-iterating recomputes the same residual.
         return flow + _lk_residual(prev, nxt, config)
-    warp, clamps = _pick_warp(nxt, config)
+    warp = warp_fn(config)
     for _ in range(config.iterations):
-        # The accumulation base must be the flow the warp ACTUALLY applied:
-        # adding the residual to an unclamped flow double-counts whatever the
-        # warp's displacement budget cut off, inflating the estimate on every
-        # iteration.
-        if clamps:
-            flow = jnp.clip(
-                flow, -config.max_displacement, config.max_displacement
-            )
-        warped = warp(nxt, flow)
-        flow = flow + _lk_residual(prev, warped, config)
+        flow = flow + _lk_residual(prev, warp(nxt, flow), config)
     return flow
 
 
@@ -150,38 +109,9 @@ def _with_iterations(config: LKConfig, iterations: int) -> LKConfig:
     return dataclasses.replace(config, iterations=iterations)
 
 
-def _pick_warp(img: jax.Array, config: LKConfig):
-    """Warp backend: Pallas select-warp on TPU, XLA gather elsewhere.
-
-    Returns (warp_fn, clamps): ``clamps`` is True when the backend enforces
-    the max_displacement budget, in which case the caller must accumulate on
-    the clamped flow.
-    """
-    if config.warp_mode == "nearest":
-        return warp_nearest, False
-    if config.use_pallas:
-        from cuda_optical_flow_2_tpu.kernels import warp_select
-
-        if warp_select.supported(img, config.max_displacement) or (
-            _interpret_forced()
-        ):
-            return (
-                functools.partial(
-                    warp_select.warp_bilinear_select,
-                    max_displacement=config.max_displacement,
-                    d_local=config.d_local,
-                    c_max=config.c_max,
-                    interpret=_interpret_forced(),
-                ),
-                True,
-            )
-    return warp_bilinear, False
-
-
-def _interpret_forced() -> bool:
-    from cuda_optical_flow_2_tpu.kernels import lk_fused
-
-    return lk_fused.interpret_forced()
+def warp_fn(config):
+    """The configured backward warp: XLA's bilinear gather, or nearest."""
+    return warp_nearest if config.warp_mode == "nearest" else warp_bilinear
 
 
 def _validate(prev: jax.Array, nxt: jax.Array, config: LKConfig) -> None:
@@ -206,15 +136,6 @@ def preprocess(frame: jax.Array, config: LKConfig) -> list[jax.Array]:
     """
     if config.prefilter is not None:
         pf = config.prefilter
-        if config.use_pallas:
-            from cuda_optical_flow_2_tpu.kernels import bilateral_tap
-
-            if bilateral_tap.supported(frame, pf.window):
-                frame = bilateral_tap.bilateral_kernel(
-                    frame, pf.window, pf.sigma_spatial, pf.sigma_range,
-                    interpret=bilateral_tap.interpret_forced(),
-                )
-                return build_pyramid(frame, config.levels)
         frame = bilateral_filter(
             frame, None, pf.window, pf.sigma_spatial, pf.sigma_range
         )
@@ -238,40 +159,11 @@ def coarse_to_fine(
     flows: list[jax.Array | None] = [None] * config.levels
     flow = init_flow
     for k in range(config.levels - 1, -1, -1):
-        half = False
         if flow is not None:
-            half = _fused_half_upsample(prev_pyr[k], flow, config)
-            if not half:
-                flow = upsample_flow(flow, prev_pyr[k].shape[-2:])
-        flow = lk_level(
-            prev_pyr[k], next_pyr[k], flow, config, flow_init_half=half
-        )
+            flow = upsample_flow(flow, prev_pyr[k].shape[-2:])
+        flow = lk_level(prev_pyr[k], next_pyr[k], flow, config)
         flows[k] = flow
     return flows  # type: ignore[return-value]
-
-
-def _fused_half_upsample(
-    prev_k: jax.Array, flow: jax.Array, config: LKConfig
-) -> bool:
-    """Whether the level-k step should consume the coarser flow directly and
-    upsample in-kernel (lk_step_fused.supported_half).  Opt-in via
-    config.fused_half_upsample: it saves the separate XLA upsample pass and
-    3/4 of the kernel's flow-input HBM traffic but costs MORE VPU time in
-    lane-interleave rolls than it saves (measured ~4% net headline loss;
-    docs/PERF.md "Remaining levers").  False for warm-start flows already at
-    level-k resolution."""
-    if not config.fused_half_upsample:
-        return False
-    if not config.use_pallas or config.warp_mode != "bilinear":
-        return False
-    h, w = prev_k.shape[-2:]
-    if flow.shape[-3:-1] != (h // 2, w // 2) or h % 2 or w % 2:
-        return False
-    from cuda_optical_flow_2_tpu.kernels import lk_step_fused
-
-    # supported_half's backend clause already covers forced-interpret mode
-    # (it goes through lk_fused.supported's "tpu or interpret_forced").
-    return lk_step_fused.supported_half(prev_k, config)
 
 
 def pyramidal_lk_pyramid(
@@ -281,7 +173,7 @@ def pyramidal_lk_pyramid(
 
     Level k flow is in level-k pixel units, matching the reference's
     per-level flow pyramid (main.cu:256-262).  The two frames' pyramids are
-    built in ONE stacked pass — the decimation matmuls and the prefilter
+    built in ONE stacked pass — the pyramid stencil and the prefilter
     batch over the pair, halving the preprocess dispatch count.
     """
     _validate(prev, nxt, config)  # equal shapes guaranteed below

@@ -1,6 +1,6 @@
 """Streaming video flow: carried pyramid state across frames.
 
-TPU-native replacement for the reference's main loop state management
+Device-resident replacement for the reference's main loop state management
 (main.cu:222-275): the reference keeps prev/cur image pyramids in host memory
 and pointer-swaps them each frame (main.cu:270-272); here the carried state is
 a device-resident pytree of pyramid levels, the per-frame step is one jitted
@@ -204,7 +204,7 @@ def step(
     """One frame step: returns (new state, dense flow prev->frame).
 
     The old pyramid buffers are donated; XLA writes the new pyramid into
-    them — the TPU-native version of the reference's pointer swap
+    them — the device-resident version of the reference's pointer swap
     (main.cu:270-272).
 
     ``warm_start=True`` seeds the coarsest level with the previous pair's
@@ -248,22 +248,12 @@ def step(
     # does not (the seed describes the old scene's motion).  The deepest
     # level (not the coarsest tracking level) keeps the check cheap at the
     # serving config — with levels=1 the tracking pyramid is full-res, but
-    # the recovery pyramid's top is 4^(levels-1)x smaller.  The warp rides
-    # the same Pallas select-warp the solvers use: the XLA gather warp
-    # costs 3.6 ms even at 270x480 (measured, the scalar-core gather
-    # pathology of docs/PERF.md), which would triple the serving step; the
-    # select warp's clamping only strengthens the check (a clamped garbage
-    # seed still misaligns).
-    from cuda_optical_flow_2_tpu.config import LKConfig
-    from cuda_optical_flow_2_tpu.models.lucas_kanade import _pick_warp
+    # the recovery pyramid's top is 4^(levels-1)x smaller.
+    from cuda_optical_flow_2_tpu.ops.warp import warp_bilinear as warp
 
     prev_c = state.pyramid[-1]
     next_c = pyr[-1]
     seed_c = downsample_flow(state.flow, next_c.shape[-2:])
-    warp, _ = _pick_warp(
-        next_c,
-        LKConfig(levels=1, use_pallas=getattr(config, "use_pallas", True)),
-    )
     # Per-STREAM residual means (frames may carry leading batch dims — a
     # batch of independent streams under DP sharding): a cut in one stream
     # must not dilute into the batch mean.

@@ -7,11 +7,9 @@ counterpart of the classic sparse pyramidal-LK tracker
 (``cv::calcOpticalFlowPyrLK``): query points are advected through each
 frame pair's dense flow with bilinear interpolation.
 
-Design note (docs/PERF.md finding 1 does NOT apply): per-PIXEL gathers
-serialize on TPU, but sampling N sparse points is a gather over N elements —
-microscopic next to the dense pipeline for any practical N.  The dense flow
-itself rides the fused Pallas path, so tracking costs one dense-flow step
-plus O(N) per frame.
+Design note: sampling N sparse points is a gather over N elements —
+microscopic next to the dense pipeline for any practical N — so tracking
+costs one dense-flow step plus O(N) per frame.
 
 Conventions: points are (N, 2) float ``(x, y)`` pixel coordinates;
 ``flow[..., 0]`` is the x-displacement, ``flow[..., 1]`` the

@@ -7,12 +7,11 @@ data term (tolerates outliers/illumination jumps where LK/HS's quadratic
 terms overweight them) with total-variation regularization (preserves motion
 DISCONTINUITIES that HS's quadratic smoothness blurs).
 
-TPU-first formulation — everything is elementwise VPU math plus
-forward/backward-difference stencils as pad-and-slice shifted adds (the
-_avg3x3 doctrine, docs/PERF.md finding 2); the inner primal-dual loop is a
-``lax.scan`` (static trip count), the pyramidal driver reuses the shared
-scaffolding (Gaussian pyramid, exact-2x flow upsample, select-based Pallas
-warp between levels).
+Formulation — everything is elementwise math plus forward/backward-difference
+stencils as pad-and-slice shifted adds, which XLA fuses; the inner
+primal-dual loop is a ``lax.scan`` (static trip count), the pyramidal driver
+reuses the shared scaffolding (Gaussian pyramid, exact-2x flow upsample,
+bilinear warp between levels).
 
 Per level, with u0 the warp-point flow (the flow the level started from):
 
@@ -72,8 +71,7 @@ class TVL1Config:
         also the default here: the median is what bounds cross-backend
         divergence, docs/PERF.md TV-L1 caveat); 0/1 disables, giving the
         pure Zach et al. update as the documented opt-out.
-      use_pallas / max_displacement / d_local / c_max: warp dispatch knobs,
-        same semantics as LKConfig (the inter-level/warp backward warp).
+      max_displacement: spatial-TP halo budget, as in LKConfig.
       prefilter: optional joint-bilateral pre-smoothing, as in LKConfig.
     """
 
@@ -85,10 +83,7 @@ class TVL1Config:
     levels: int = 5
     epsilon: float = 1e-6
     median_filtering: int = 5
-    use_pallas: bool = True
     max_displacement: int = 32
-    d_local: int = 7
-    c_max: int = 1
     prefilter: Optional[BilateralConfig] = None
 
     def __post_init__(self) -> None:
@@ -146,24 +141,7 @@ def tvl1_level(
 
     ``warped`` is next warped by ``u0``; ``flow`` is the current estimate
     (== u0 on the first warp).  Returns the refined TOTAL flow.
-
-    On TPU the whole inner loop runs as the time-tiled Pallas kernel
-    (kernels/tvl1_sweep.py — K iterations per HBM round trip); the XLA scan
-    below is the fallback and correctness twin.
     """
-    if config.use_pallas:
-        from cuda_optical_flow_2_tpu.kernels import tvl1_sweep
-
-        if tvl1_sweep.supported(prev):
-            return tvl1_sweep.tvl1_relax(
-                prev, warped, u0, flow,
-                iterations=config.iterations,
-                lambda_=config.lambda_,
-                theta=config.theta,
-                tau=config.tau,
-                eps=config.epsilon,
-                interpret=tvl1_sweep.interpret_forced(),
-            )
     gx, gy = spatial_gradients(warped, normalize=True)
     g2 = gx * gx + gy * gy
     g2s = jnp.maximum(g2, config.epsilon)
@@ -232,14 +210,13 @@ def tvl1_coarse_to_fine(
 ) -> jax.Array:
     """Coarse-to-fine TV-L1 over prebuilt pyramids; returns the finest flow.
 
-    Each warp backward-warps the next frame by the current TOTAL flow
-    (select-based Pallas warp on TPU, the same dispatch as LK/HS/FB) and
-    runs ``config.iterations`` primal-dual steps on the re-linearized
-    residual.
+    Each warp backward-warps the next frame by the current TOTAL flow (the
+    same warp as LK/HS/FB) and runs ``config.iterations`` primal-dual steps
+    on the re-linearized residual.
     """
-    from cuda_optical_flow_2_tpu.models.lucas_kanade import _pick_warp
+    from cuda_optical_flow_2_tpu.models.lucas_kanade import warp_fn
 
-    lk_like = _lk_like(config)
+    warp = warp_fn(_lk_like(config))
     flow = init_flow
     for k in range(config.levels - 1, -1, -1):
         p, n = prev_pyr[k], next_pyr[k]
@@ -247,12 +224,7 @@ def tvl1_coarse_to_fine(
             flow = jnp.zeros(p.shape + (2,), p.dtype)
         else:
             flow = upsample_flow(flow, p.shape[-2:])
-        warp, clamps = _pick_warp(n, lk_like)
         for _ in range(config.warps):
-            if clamps:
-                flow = jnp.clip(
-                    flow, -config.max_displacement, config.max_displacement
-                )
             warped = warp(n, flow)
             flow = tvl1_level(p, warped, flow, flow, config)
             if config.median_filtering > 1:
@@ -279,10 +251,8 @@ def pyramidal_tvl1(
 
 pyramidal_tvl1_jit = jax.jit(pyramidal_tvl1, static_argnames=("config",))
 
-# Real-time operating point (docs/PERF.md "TV-L1 operating-point sweep"):
-# 69 fps at 1080p on one v5e chip vs the classic default's 32 fps.
-# iterations=14 exactly fills ONE time-tile chunk of kernels/tvl1_sweep.py
-# (a single halo load per warp — the measured efficiency knee); 4 warps
-# keep the rotation-field EPE within ~25% of the 150-iteration default
-# (0.136 vs 0.110) and the translation EPE at 0.023.
+# Real-time operating point: 4 levels x 4 warps x 14 iterations, about 2.7x
+# less relaxation work than the classic default; 4 warps keep the
+# rotation-field EPE within ~25% of the 150-iteration default (0.136 vs
+# 0.110) and the translation EPE at 0.023.
 TVL1_REALTIME = TVL1Config(levels=4, warps=4, iterations=14)

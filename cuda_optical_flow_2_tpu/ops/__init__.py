@@ -1,10 +1,11 @@
 """Pure-JAX op library (the XLA reference path).
 
-TPU-native re-design of the reference's GPU op library (namespace gpu,
+Re-design of the reference's GPU op library (namespace gpu,
 OptFlowGpu.cu — see SURVEY.md section 2.1).  Every op here is a pure function on
 device-resident ``jax.Array``s, composable under one ``jit``; none of the
-reference's per-op host<->device round trips exist.  The Pallas kernels in
-``cuda_optical_flow_2_tpu.kernels`` replace the hot compositions of these ops.
+reference's per-op host<->device round trips exist.  The fused kernel in
+``cuda_optical_flow_2_tpu.kernels`` replaces the hot composition of these ops
+(gradients, window sums, solve) on the GPU.
 """
 
 from cuda_optical_flow_2_tpu.ops.color import grayscale, grayscale_u8

@@ -1,10 +1,12 @@
 """2-D stencil convolutions over single-plane images.
 
-TPU-native replacement for the reference's conv kernel family (G2-G8,
+Replacement for the reference's conv kernel family (G2-G8,
 OptFlowGpu.cu:108-1191).  The reference ships six hand-tiled CUDA variants of
 the same zero-padded correlation; here one XLA ``conv_general_dilated`` covers
-them all — XLA tiles small stencils onto the VPU/MXU itself, and the Pallas
-fused kernel (kernels/lk_fused.py) subsumes the gradient convs entirely.
+them all, and the fused residual kernel (kernels/lk_fused.py) subsumes the
+gradient convs on its path.  Every conv pins ``Precision.HIGHEST``: on the
+GPU a float32 conv may otherwise run in TF32 (~3 decimal digits), and these
+convs feed the LK determinant ``a*d - b^2``, which cancels badly.
 
 All functions take planar images shaped ``(..., H, W)`` (any leading batch
 dims) and perform *correlation* (no mask flip) with zero padding, matching the
@@ -35,7 +37,7 @@ def conv2d(x: jax.Array, mask, *, dtype=None) -> jax.Array:
     Args:
       x: image(s), shape (..., H, W).
       mask: 2-D stencil (kh, kw) — NumPy array or nested list; baked into the
-        jitted program as a constant (the TPU analogue of the reference's
+        jitted program as a constant (the reference keeps it in
         ``__constant__ float mask[25]``, OptFlowGpu.cu:190).
       dtype: accumulation/output dtype; defaults to x.dtype (floating) or
         float32 for integer inputs.
@@ -56,6 +58,7 @@ def conv2d(x: jax.Array, mask, *, dtype=None) -> jax.Array:
         window_strides=(1, 1),
         padding=((kh // 2, (kh - 1) // 2), (kw // 2, (kw - 1) // 2)),
         dimension_numbers=("NCHW", "OIHW", "NCHW"),
+        precision=lax.Precision.HIGHEST,
     )
     return out[:, 0].reshape(lead + x.shape[-2:])
 
@@ -63,8 +66,8 @@ def conv2d(x: jax.Array, mask, *, dtype=None) -> jax.Array:
 def sep_conv2d(x: jax.Array, col, row, *, dtype=None) -> jax.Array:
     """Separable zero-padded correlation: rank-1 mask = col (x) row.
 
-    Two 1-D passes instead of a dense kh*kw loop — the cheap form the TPU VPU
-    wants for the binomial pyramid filter and the box window sums.
+    Two 1-D passes instead of a dense kh*kw loop (the box window sums and
+    other separable masks).
     """
     col = np.asarray(col).reshape(-1)
     row = np.asarray(row).reshape(-1)
@@ -80,6 +83,7 @@ def sep_conv2d(x: jax.Array, col, row, *, dtype=None) -> jax.Array:
         window_strides=(1, 1),
         padding=((kh // 2, (kh - 1) // 2), (0, 0)),
         dimension_numbers=("NCHW", "OIHW", "NCHW"),
+        precision=lax.Precision.HIGHEST,
     )
     out = lax.conv_general_dilated(
         out,
@@ -87,25 +91,19 @@ def sep_conv2d(x: jax.Array, col, row, *, dtype=None) -> jax.Array:
         window_strides=(1, 1),
         padding=((0, 0), (kw // 2, (kw - 1) // 2)),
         dimension_numbers=("NCHW", "OIHW", "NCHW"),
+        precision=lax.Precision.HIGHEST,
     )
     return out[:, 0].reshape(lead + x.shape[-2:])
 
 
 def stencil2d(x: jax.Array, mask, *, dtype=None) -> jax.Array:
-    """Shift-form zero-padded 2-D correlation (layout-safe conv2d twin).
+    """Shift-form zero-padded 2-D correlation (conv2d twin).
 
     Same semantics as :func:`conv2d` (correlation, zero pad, same shape)
     computed as a sum of statically shifted copies — pad + slice + FMA per
-    nonzero tap — instead of ``lax.conv_general_dilated``.
-
-    Why it exists (docs/PERF.md finding 2): a TPU convolution whose output
-    layout is pinned by a downstream custom call (a Pallas kernel) silently
-    switches XLA to an emitter ~13x slower, and the relayout alone costs tens
-    of milliseconds at 1080p.  Shifted slices fuse into plain elementwise VPU
-    code with no layout constraints: measured 31.1 ms (conv2d feeding the
-    Pallas relaxation) vs 0.20 ms (this form) for a 3x3 Sobel at 1080p.
-    Use this for small masks on paths whose output feeds a Pallas kernel;
-    ``conv2d`` remains the general XLA path.
+    nonzero tap — instead of ``lax.conv_general_dilated``, so XLA fuses it
+    with the surrounding elementwise work (the DIS refinement and the
+    robust relaxation use it).
     """
     mask = np.asarray(mask)
     if mask.ndim != 2:

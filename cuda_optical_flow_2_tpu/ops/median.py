@@ -3,14 +3,13 @@
 Not in the reference (which implements LK only); provided because the
 standard TV-L1 pipeline (Zach et al. as deployed in OpenCV's DualTVL1,
 ``medianBlur`` on the flow between warps) relies on a median filter to
-reject flow outliers at motion discontinuities, and a TPU framework user
-switching their TV-L1 workload expects it.
+reject flow outliers at motion discontinuities, and a user switching their
+TV-L1 workload expects it.
 
-TPU-first formulation: the k x k neighborhood is materialized as k^2
-statically shifted copies (zero-cost sublane shifts + cheap lane shifts,
-the same pattern as every stencil in ops/) and the median is computed by a
-branch-free PARTIAL Batcher selection network of minimum/maximum ops on the
-VPU — `jnp.sort` on a 25-deep stacked axis would sort fully (O(k^2 log^2)
+Formulation: the k x k neighborhood is materialized as k^2 statically
+shifted copies (the same pattern as every stencil in ops/) and the median
+is computed by a branch-free PARTIAL Batcher selection network of
+minimum/maximum ops — `jnp.sort` on a 25-deep stacked axis would sort fully (O(k^2 log^2)
 and an awkward layout); selecting only the middle element needs far fewer
 compare-exchanges.  Edges replicate (OpenCV BORDER_REPLICATE, what
 medianBlur uses).
@@ -62,8 +61,7 @@ def median_filter(x: jax.Array, size: int = 5) -> jax.Array:
         return x
     r = size // 2
     # One edge pad + k^2 STATIC slices: each slice is a constant-offset view
-    # (zero-cost sublane / cheap lane shift on TPU) — never a gather, which
-    # serializes per element (docs/PERF.md finding 1).
+    # that XLA fuses into the selection network — never a gather.
     h, w = x.shape[-2:]
     pads = [(0, 0)] * (x.ndim - 2) + [(r, r), (r, r)]
     xp = jnp.pad(x, pads, mode="edge")

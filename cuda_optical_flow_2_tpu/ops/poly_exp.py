@@ -11,11 +11,8 @@ along each axis (basis (1, x, y, x^2, y^2, xy) separates; Farnebäck 2003
 section 3.3).  NOT in the reference (Kr-Stam/CUDA_Optical_Flow_2 implements
 Lucas-Kanade only); provided for the Farnebäck model family extension.
 
-TPU-first: the six correlations are static shifted adds (pad-and-slice) that
-XLA fuses into a handful of bandwidth-bound passes — deliberately NOT
-``lax.conv`` (the TPU conv emitter degrades when a downstream custom call
-pins its output layout, docs/PERF.md finding 2; the Pallas warp consumes
-these planes).  G is inverted in NumPy at trace time and baked in as
+Formulation: the six correlations are static shifted adds (pad-and-slice)
+that XLA fuses into a handful of bandwidth-bound passes.  G is inverted in NumPy at trace time and baked in as
 constants; boundary semantics are zero-padded f with the interior G
 (constant-certainty expansion), matching the NumPy oracle in the tests.
 """

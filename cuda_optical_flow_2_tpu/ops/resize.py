@@ -24,10 +24,9 @@ def _up2x_axis(x: jax.Array, axis: int) -> jax.Array:
 
     Matches jax.image.resize(..., "bilinear", antialias=False) for a 2x
     target: out[2k] = 0.75*in[k] + 0.25*in[k-1], out[2k+1] = 0.75*in[k] +
-    0.25*in[k+1], edges clamped.  Pure shifts + interleave — resize's
-    general-scale path lowers to gather-heavy code on TPU when fused into a
-    larger program (measured ~12 ms inside the 1080p pipeline vs ~0.4 ms for
-    this form).
+    0.25*in[k+1], edges clamped.  Pure shifts + interleave, which fuse into
+    one elementwise pass (resize's general-scale path is a gather-and-
+    contract form).
     """
     lo = jnp.concatenate(
         [jax.lax.slice_in_dim(x, 0, 1, axis=axis), jax.lax.slice_in_dim(x, 0, -1, axis=axis)],
@@ -93,16 +92,10 @@ def downsample_flow(flow: jax.Array, shape: tuple[int, int]) -> jax.Array:
     round trip shifts a spatially varying field by a quarter coarse pixel,
     immaterial for the warm-start seeding it serves):
     binomial blur + 2x decimation per octave (values halved per octave),
-    per component through :func:`ops.pyramid.pyr_down` — the MXU decimation
-    matmul / Pallas tile path the image pyramid itself uses.  ``shape`` must
-    be reachable by floor-halving.  Border rows/cols dip toward zero (the
-    decimation's zero padding), which is immaterial for its use as a
-    warm-start seed.
-
-    Two rejected formulations, measured on v5e at 1080p (PERF.md finding 7):
-    stride-2 slice chains CRASH the TPU worker when composed into the
-    pipeline program; reshape-(h,2,w,2)-and-sum runs but costs ~4 ms in
-    lane-crossing relayouts — vs ~0.1 ms for the decimation matmuls.
+    per component through :func:`ops.pyramid.pyr_down` — the strided
+    stencil the image pyramid itself uses.  ``shape`` must be reachable by
+    floor-halving.  Border rows/cols dip toward zero (the decimation's zero
+    padding), which is immaterial for its use as a warm-start seed.
     """
     from cuda_optical_flow_2_tpu.ops.pyramid import pyr_down
 

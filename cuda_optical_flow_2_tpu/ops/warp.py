@@ -1,6 +1,6 @@
 """Backward image warping by a flow field.
 
-TPU-native replacement for the *intent* of cpu::shift_back_pyramid
+Replacement for the *intent* of cpu::shift_back_pyramid
 (OptFlowCPU.cpp:241-282): sample the next frame at ``x + flow(x)`` so that the
 residual motion left for the current level is small.  The reference's
 implementation is nearest-neighbor and carries an indexing bug that samples
@@ -11,9 +11,9 @@ documented intent (BASELINE config 3 demands bilinear warping).
 Out-of-bounds samples keep the unwarped pixel value, matching the reference's
 ``continue`` on out-of-range coordinates (OptFlowCPU.cpp:270-273).
 
-Implementation note: TPUs have no texture units; the gather is expressed with
-``jnp.take`` on a flattened image, which XLA lowers to a single dynamic
-gather.  Coordinates are clamped so every lane stays in bounds and the
+Implementation note: the gather is expressed with ``jnp.take`` on a
+flattened image, which XLA lowers to a single dynamic gather (no texture
+units are used).  Coordinates are clamped so every lane stays in bounds and the
 out-of-bounds mask selects the fallback afterwards.
 """
 

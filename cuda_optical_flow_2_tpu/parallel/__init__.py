@@ -1,13 +1,13 @@
-"""Multi-chip scaling: batch (data-parallel) and spatial (tensor-parallel).
+"""Multi-card scaling: batch (data-parallel) and spatial (tensor-parallel).
 
 The reference is strictly single-GPU/single-process (SURVEY.md section 2.5);
-scale-out here is TPU-native over a ``jax.sharding.Mesh``:
+scale-out here runs over a ``jax.sharding.Mesh`` of GPUs:
 
 * batching — frame pairs on a leading axis, sharded over the mesh; zero
   collectives (pairs are independent, BASELINE config 5).
 * spatial — ONE frame's rows sharded over the mesh under ``shard_map``, every
   stencil stage exchanging halo rows with its neighbors via ``lax.ppermute``
-  over ICI (for frames too large for one chip, or single-pair latency).
+  over NVLink (for frames too large for one card, or single-pair latency).
 """
 
 from cuda_optical_flow_2_tpu.parallel.batching import (

@@ -1,6 +1,6 @@
 """Frame-pair batch sharding over a device mesh.
 
-TPU-native replacement for the reference's (absent) scale-out story: the
+Replacement for the reference's (absent) scale-out story: the
 64-frame 1080p stream of BASELINE config 5 becomes a (B, H, W) batch sharded
 over the mesh's "batch" axis.  The pipeline is elementwise in the batch
 dimension, so under ``jit`` with sharding annotations XLA partitions every op
@@ -70,21 +70,12 @@ def sharded_flow(
         raise ValueError(f"batch {b} not divisible by mesh axis size {n}")
     prev_s = shard_batch(prev_batch, mesh, axis_name)
     next_s = shard_batch(next_batch, mesh, axis_name)
-    return _sharded_flow_jit(config, mesh, axis_name, _interp_key())(
-        prev_s, next_s
-    )
-
-
-def _interp_key() -> bool:
-    """Interpret-mode cache-key component (see spatial._interp_key)."""
-    from cuda_optical_flow_2_tpu.kernels.lk_fused import interpret_forced
-
-    return interpret_forced()
+    return _sharded_flow_jit(config, mesh, axis_name)(prev_s, next_s)
 
 
 @functools.lru_cache(maxsize=128)
-def _sharded_flow_jit(config, mesh: Mesh, axis_name: str, interp: bool):
-    # Cached per (config, mesh, interpret-mode) so one-call-per-pair serving
+def _sharded_flow_jit(config, mesh: Mesh, axis_name: str):
+    # Cached per (config, mesh) so one-call-per-pair serving
     # loops reuse the traced/compiled program instead of retracing a fresh
     # partial each call.
     in_spec = NamedSharding(mesh, P(axis_name, None, None))
@@ -115,14 +106,10 @@ def chunked_flow(
 ) -> jax.Array:
     """Large-batch flow with the batch serialized in ``chunk``-pair steps.
 
-    Measured serving guidance (docs/PERF.md "config 5 mechanism"): on one
-    chip, whole-batch programs pay a flat ~0.5 ms/pair program-embedding
-    penalty from b=4 up (519 -> ~365 pairs/s at 1080p); ``lax.map`` over
-    chunk=2 sub-batches is the best measured in-one-program point
-    (421 pairs/s at b=64, +16% over whole-batch).  For maximum per-chip
-    throughput prefer sequential dispatch / models.streaming; use this when
-    one program must own the whole batch (e.g. under a DP mesh where each
-    chip's shard is still large).
+    ``lax.map`` over ``chunk``-pair sub-batches bounds the program's working
+    set to one chunk; use this when one program must own a large batch
+    (e.g. under a DP mesh where each card's shard is still large).  Its
+    speed on the GPU against whole-batch programs is not measured yet.
     """
     b = prev_batch.shape[0]
     if b % chunk != 0:
@@ -130,13 +117,13 @@ def chunked_flow(
     lead = prev_batch.shape[1:]
     pc = prev_batch.reshape((b // chunk, chunk) + lead)
     nc = next_batch.reshape((b // chunk, chunk) + lead)
-    out = _chunked_flow_jit(config, _interp_key())(pc, nc)
+    out = _chunked_flow_jit(config)(pc, nc)
     return out.reshape((b,) + lead + (2,))
 
 
 @functools.lru_cache(maxsize=128)
-def _chunked_flow_jit(config, interp: bool):
-    # One cached jit wrapper per (config, interpret-mode); jit's own cache
+def _chunked_flow_jit(config):
+    # One cached jit wrapper per config; jit's own cache
     # handles shape variation.  Without this every serving-loop call paid a
     # full eager lax.map retrace of the whole pipeline.
     return jax.jit(

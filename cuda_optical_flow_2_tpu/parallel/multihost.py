@@ -1,22 +1,22 @@
-"""Multi-host (DCN) scale-out scaffolding.
+"""Multi-host scale-out scaffolding.
 
 The reference is strictly single-process (SURVEY.md section 2.5); within one
-TPU slice this framework scales over ICI via the mesh APIs in
+host this framework scales over NVLink via the mesh APIs in
 parallel/batching.py / parallel/spatial.py.  This module adds the multi-host
-layer for when the frame stream outgrows one host's slice: standard JAX
+layer for when the frame stream outgrows one host's cards: standard JAX
 multi-process setup (`jax.distributed`) plus a helper that builds the global
 mesh and per-host input feeding for batch (DP) sharding — frame pairs are
-independent, so DP never communicates across DCN; only compilation-time
+independent, so DP never communicates across hosts; only compilation-time
 coordination and any cross-host reductions the caller adds ride it.
 
 Layout doctrine (jax-ml.github.io/scaling-book): keep the batch axis outer
 and aligned to hosts so each host feeds only its local shard
 (``host_local_batch``), and keep any spatial (TP) axis INSIDE one host's
-devices so halo ppermutes stay on ICI — `make_global_mesh` orders the axes
+devices so halo ppermutes stay on NVLink — `make_global_mesh` orders the axes
 accordingly.
 
 Validated in-process (single-host initialize + global mesh over local
-devices, tests/test_parallel.py); on a real multi-host slice pass the
+devices, tests/test_parallel.py); on a real multi-host cluster pass the
 coordinator address per the standard JAX runbook.
 """
 
@@ -47,8 +47,9 @@ def initialize(
 ) -> None:
     """Initialize JAX multi-process runtime (no-op if already initialized).
 
-    With no arguments JAX autodetects the environment (TPU pod runtime /
-    cluster env vars); single-process callers may simply skip this.
+    With no arguments JAX autodetects a cluster from its environment
+    variables (SLURM, Open MPI, ...); elsewhere pass all three arguments.
+    Single-process callers may simply skip this.
     """
     # Idempotency via runtime state, not error-message matching: a repeated
     # call is a no-op when the distributed client already exists.  The
@@ -85,9 +86,9 @@ def make_global_mesh(
 ) -> Mesh:
     """Global mesh over ALL processes' devices.
 
-    The batch axis spans hosts (DCN-safe: DP has no collectives); when
+    The batch axis spans hosts (DP has no collectives); when
     ``space_axis`` is given, the spatial axis is sized to one host's local
-    device count so every halo exchange stays on ICI.
+    device count so every halo exchange stays on NVLink.
     """
     devices = np.asarray(jax.devices())
     if space_axis is None:
@@ -127,7 +128,7 @@ def sharded_flow_from_local(
     The multi-host twin of parallel.batching.sharded_flow: each process
     passes only its own (B_local, H, W) frame pairs (B_local = the
     ``host_local_batch`` slice); the global array is assembled with
-    ``jax.make_array_from_process_local_data`` — no frame crosses DCN, and
+    ``jax.make_array_from_process_local_data`` — no frame crosses hosts, and
     the DP computation itself has no collectives.  Returns the global
     (B_global, H, W, 2) flow, of which this process can fetch its
     ``addressable_shards``.
@@ -138,15 +139,12 @@ def sharded_flow_from_local(
     sh = NamedSharding(mesh, P(batch_axis, None, None))
     gp = jax.make_array_from_process_local_data(sh, local_prev, gshape)
     gn = jax.make_array_from_process_local_data(sh, local_nxt, gshape)
-    from cuda_optical_flow_2_tpu.parallel.spatial import _interp_key
-
-    return _global_flow_jit(config, mesh, batch_axis, _interp_key())(gp, gn)
+    return _global_flow_jit(config, mesh, batch_axis)(gp, gn)
 
 
 @functools.lru_cache(maxsize=128)
-def _global_flow_jit(config, mesh: Mesh, batch_axis: str, interp: bool):
-    # Cached per (config, mesh, interpret-mode) so per-step multihost calls
-    # don't retrace (interp: see spatial._interp_key).
+def _global_flow_jit(config, mesh: Mesh, batch_axis: str):
+    # Cached per (config, mesh) so per-step multihost calls don't retrace.
     from cuda_optical_flow_2_tpu.models import pyramidal_flow
 
     sh = NamedSharding(mesh, P(batch_axis, None, None))

@@ -6,9 +6,9 @@ in the framework can run one frame pair across a mesh:
 
 * **Horn-Schunck**: gradients on an exchanged band, then time-tiled Jacobi
   relaxation — each halo exchange ships ``sweep_tile`` rows and buys
-  ``sweep_tile`` local sweeps (the communication analogue of the
-  kernels/hs_sweep.py VMEM trapezoid: band-edge error propagates one row per
-  sweep, so rows deeper than the tile stay exact and are all we keep).
+  ``sweep_tile`` local sweeps (a time-tiled trapezoid: band-edge error
+  propagates one row per sweep, so rows deeper than the tile stay exact and
+  are all we keep).
 * **Farnebäck** (image-warp formulation): polynomial expansion on an
   exchanged band (expansion halo r_poly nests inside the window halo), warp
   band, re-expansion, windowed normal equations, solve.
@@ -63,13 +63,10 @@ from cuda_optical_flow_2_tpu.ops.warp import warp_bilinear_band
 from cuda_optical_flow_2_tpu.ops.window import window_sum
 from cuda_optical_flow_2_tpu.parallel.spatial import (
     _crop_rows,
-    _fused_enabled,
     _local_lk_level,
-    _interp_key,
     _local_prefilter,
     _local_pyr_down,
     _local_upsample2x_flow,
-    _prefilter_pallas,
     _zero_outside_global,
     halo_exchange,
     shard_map,
@@ -91,57 +88,12 @@ __all__ = [
 ]
 
 
-def _warp_pallas(config) -> bool:
-    """Whether shard-local band warps dispatch to the select-loop kernel
-    (kernels/warp_select.warp_bilinear_select_band) instead of the XLA
-    gather form — the gather serializes on TPU (docs/PERF.md finding 1).
-    Mirrors the unsharded dispatch bounds (warp_select.supported), so a
-    config the single-chip path would route to XLA stays XLA under TP."""
-    if not config.use_pallas or config.max_displacement > 96:
-        return False
-    from cuda_optical_flow_2_tpu.kernels import lk_fused
-
-    return lk_fused.mosaic_ok()
-
-
-def _sweep_pallas(config) -> bool:
-    """Whether shard-local relaxation sweeps dispatch to the time-tiled
-    Pallas kernels (kernels/hs_sweep.hs_relax_band /
-    kernels/tvl1_sweep.tvl1_relax_band) instead of the XLA sweep loops —
-    the XLA forms pay one HBM round trip per sweep (their module
-    docstrings), which would leave TP ~20x off the single-chip path."""
-    if not config.use_pallas:
-        return False
-    from cuda_optical_flow_2_tpu.kernels import lk_fused
-
-    return lk_fused.mosaic_ok()
-
-
-def _validate_pallas_band_width(w: int, config, family: str) -> None:
-    """Reject configs whose coarsest level is too narrow for the band
-    kernels the TP path would dispatch (their ``supported()`` bounds
-    require w >= 8, but the TP predicates are config-only so shard_map
-    halo sizing and check_vma stay consistent across levels) — an early
-    precise error instead of running a kernel outside its validated
-    budget."""
-    if not (_warp_pallas(config) or _sweep_pallas(config)):
-        return
-    w_top = w >> (config.levels - 1)
-    if w_top < 8:
-        raise ValueError(
-            f"spatial {family} with use_pallas needs the coarsest level "
-            f">= 8 columns for the band kernels; got {w_top} "
-            f"(w={w}, levels={config.levels}) — reduce levels or set "
-            f"use_pallas=False"
-        )
-
-
 def _band_warp(
     nxt, flow_c, config, axis_name, n, row0, h_global, r_out, *,
     nxt_p=None, flow_p=None,
 ):
     """Warp a shard band by a clamped flow, returning an ``r_out``-extended
-    warped band: Pallas select-loops when enabled, XLA gather twin else.
+    warped band (the XLA gather warp on the band).
 
     ``nxt_p`` / ``flow_p`` accept pre-exchanged ``r_out + d + 2``-halo bands
     so loops over a constant frame (the TV-L1 warps loop) exchange it once.
@@ -150,22 +102,6 @@ def _band_warp(
     r_img = r_out + d + 2
     if nxt_p is None:
         nxt_p = halo_exchange(nxt, r_img, r_img, axis_name, n)
-    if _warp_pallas(config):
-        from cuda_optical_flow_2_tpu.kernels import lk_fused, warp_select
-
-        if flow_p is None:
-            flow_p = halo_exchange(
-                flow_c, r_img, r_img, axis_name, n, row_axis=-3
-            )
-        warped = warp_select.warp_bilinear_select_band(
-            nxt_p, flow_p, row0 - r_img, h_global,
-            max_displacement=int(config.max_displacement),
-            d_local=config.d_local,
-            c_max=getattr(config, "c_max", 1),
-            interpret=lk_fused.interpret_forced(),
-            vma=(axis_name,),
-        )
-        return _crop_rows(warped, d + 2)
     if flow_p is None:
         flow_p = halo_exchange(flow_c, r_out, r_out, axis_name, n, row_axis=-3)
     return warp_bilinear_band(
@@ -194,41 +130,11 @@ def _local_hs_relax(
     flow is exchanged with ``K = sweep_tile`` halo rows and swept K times —
     band-edge contamination travels one row per sweep, so the kept interior
     equals the unsharded result exactly.
-
-    With ``config.use_pallas`` each chunk instead runs ONE invocation of the
-    time-tiled Pallas kernel on the exchanged band
-    (kernels/hs_sweep.hs_relax_band, global-coordinate boundary): the
-    gradient ring adds 2 halo rows per chunk, and the kernel recomputes the
-    gradients per chunk from the resident frame bands (noise next to K
-    sweeps — hs_sweep docstring).
     """
     from cuda_optical_flow_2_tpu.models.horn_schunck import _robust_eps
 
     robust = _robust_eps(config)
-    if _sweep_pallas(config):
-        from cuda_optical_flow_2_tpu.kernels import hs_sweep, lk_fused
-
-        k = min(sweep_tile, config.iterations, hs_sweep.MAX_SWEEPS)
-        rg = k + 2
-        prev_p = halo_exchange(prev, rg, rg, axis_name, n)
-        nxt_p = halo_exchange(nxt, rg, rg, axis_name, n)
-        uv = jnp.zeros(prev.shape + (2,), prev.dtype)
-        sweeps_left = config.iterations
-        for _ in range(-(-config.iterations // k)):
-            s = min(k, sweeps_left)
-            sweeps_left -= s
-            uv_p = halo_exchange(uv, rg, rg, axis_name, n, row_axis=-3)
-            uv_p = hs_sweep.hs_relax_band(
-                prev_p, nxt_p, uv_p, row0 - rg, h_global,
-                sweeps=s, alpha=config.alpha,
-                temporal_kernel=config.temporal_kernel,
-                interpret=lk_fused.interpret_forced(), vma=(axis_name,),
-                robust=robust,
-            )
-            uv = _crop_rows(uv_p, rg, -3)
-        return uv
-
-    # XLA twin.  Under the Charbonnier penalty the flow band carries one
+    # Under the Charbonnier penalty    # XLA twin.  Under the Charbonnier penalty the flow band carries one
     # extra halo row (the lagged weights' central-difference ring) and the
     # weights are recomputed per exchange chunk — sweep_tile is the IRLS
     # cadence, as for the DIS band twin.
@@ -313,7 +219,6 @@ def validate_spatial_hs(
     h: int, w: int, config: HSConfig, n: int, sweep_tile: int = 8
 ) -> None:
     validate_prefilter_shards(h, n, config, w)
-    _validate_pallas_band_width(w, config, "HS")
     top = config.levels - 1
     if h % (n << top) or (top and w % (1 << top)):
         raise ValueError(
@@ -348,9 +253,7 @@ def spatial_pyramidal_hs(
     h, w = prev.shape[-2:]
     n = mesh.shape[axis_name]
     validate_spatial_hs(h, w, config, n, sweep_tile)
-    return _spatial_hs_jit(
-        config, mesh, axis_name, n, h, sweep_tile, _interp_key()
-    )(prev, nxt)
+    return _spatial_hs_jit(config, mesh, axis_name, n, h, sweep_tile)(prev, nxt)
 
 
 def _local_hs_level(
@@ -373,18 +276,16 @@ def _local_hs_level(
 @functools.lru_cache(maxsize=128)
 def _spatial_hs_jit(
     config: HSConfig, mesh: Mesh, axis_name: str, n: int, h: int,
-    sweep_tile: int, interp: bool,
+    sweep_tile: int,
 ):
-    # Cached per (config, mesh, shape, interpret-mode) so per-frame serving
-    # calls reuse the traced/compiled program instead of retracing a fresh
-    # closure each time (interp: see spatial._interp_key).
-    local, check_vma = _family_local(config, axis_name, n, h, sweep_tile, 0)
+    # Cached per (config, mesh, shape) so per-frame serving calls reuse the
+    # traced/compiled program instead of retracing a fresh closure each time.
+    local = _family_local(config, axis_name, n, h, sweep_tile, 0)
     fn = shard_map(
         local,
         mesh=mesh,
         in_specs=(P(axis_name, None), P(axis_name, None)),
         out_specs=P(axis_name, None, None),
-        check_vma=check_vma,
     )
     return jax.jit(fn)
 
@@ -408,71 +309,6 @@ def _banded_expansion(frame_p, config, row0_pad, h_global):
     return poly_expansion(fz, config.poly_n, config.poly_sigma)
 
 
-def _fb_fused_enabled(config: FBConfig) -> bool:
-    """Whether _local_fb_level dispatches to the fused Pallas band kernel
-    (kernels/fb_step_fused.fb_band_step).  Same doctrine as the LK path
-    (parallel/spatial._fused_enabled): the hot path must be the fast path
-    under TP; the XLA form below stays as the use_pallas=False twin."""
-    if not config.use_pallas or config.warp_planes != "image":
-        return False
-    if config.gaussian_window or config.max_displacement > 96:
-        return False
-    if config.winsize > 33:
-        return False
-    from cuda_optical_flow_2_tpu.kernels import lk_fused
-
-    return lk_fused.mosaic_ok()
-
-
-def _fb_fused_halo(config: FBConfig) -> int:
-    """Caller-side halo for the fused band kernel: the kernel's band margin
-    (fb_step_fused.band_margin — the kernel's own rb, so the two can never
-    desync) plus the warp budget."""
-    from cuda_optical_flow_2_tpu.kernels import fb_step_fused
-
-    rb = fb_step_fused.band_margin(config)
-    return rb + int(math.ceil(config.max_displacement)) + 2
-
-
-def _local_fb_level_fused(
-    prev, nxt, flow, config, axis_name, n, row0, h_global
-):
-    """Fused-Pallas shard-local FB level: ONE kernel per iteration on the
-    halo-extended band (kernels/fb_step_fused.fb_band_step) — warp +
-    re-expansion + window sums + solve without leaving VMEM.
-
-    The prev expansion and the next band are exchanged once per level; each
-    iteration re-exchanges only the flow.  Band-edge rows are garbage by
-    construction and cropped.
-    """
-    from cuda_optical_flow_2_tpu.kernels import fb_step_fused, lk_fused
-
-    _, r_poly, _ = _fb_radii(config)
-    halo = _fb_fused_halo(config)
-    interp = lk_fused.interpret_forced()
-
-    prev_p = halo_exchange(prev, halo + r_poly, halo + r_poly, axis_name, n)
-    exp1 = tuple(
-        _crop_rows(x, r_poly)
-        for x in _banded_expansion(
-            prev_p, config, row0 - halo - r_poly, h_global
-        )
-    )
-    nxt_p = halo_exchange(nxt, halo, halo, axis_name, n)
-
-    first = flow is None
-    if first:
-        flow = jnp.zeros(prev.shape + (2,), prev.dtype)
-    for it in range(config.iterations):
-        flow_p = halo_exchange(flow, halo, halo, axis_name, n, row_axis=-3)
-        out = fb_step_fused.fb_band_step(
-            nxt_p, exp1, flow_p, row0 - halo, config, h_global,
-            first=first and it == 0, interpret=interp, vma=(axis_name,),
-        )
-        flow = _crop_rows(out, halo, -3)
-    return flow
-
-
 def _local_fb_level(prev, nxt, flow, config, axis_name, n, row0, h_global):
     """One Farnebäck level on a row shard (image-warp formulation).
 
@@ -480,15 +316,7 @@ def _local_fb_level(prev, nxt, flow, config, axis_name, n, row0, h_global):
     once on an ``r_e``-padded band; each iteration warps the next-frame band
     by the current flow, re-expands it, and solves the windowed normal
     equations, cropping back to the shard's rows.
-
-    With ``config.use_pallas`` (image formulation) the whole shard-local
-    step runs as the fused Pallas band kernel instead — see
-    :func:`_local_fb_level_fused`.
     """
-    if _fb_fused_enabled(config):
-        return _local_fb_level_fused(
-            prev, nxt, flow, config, axis_name, n, row0, h_global
-        )
     r_win, r_poly, r_e = _fb_radii(config)
     d = int(math.ceil(config.max_displacement))
     r_img = r_e + d + 2
@@ -513,23 +341,10 @@ def _local_fb_level(prev, nxt, flow, config, axis_name, n, row0, h_global):
             flow = jnp.clip(
                 flow, -config.max_displacement, config.max_displacement
             )
-            # Same warp dispatch as HS/TV-L1 (_band_warp): select-loops when
-            # the Pallas path is on (matching unsharded fb_level_image's
-            # warp backend), XLA gather twin otherwise.  The select path
-            # needs the r_img-halo flow; its r_e-halo view feeds u, v.
-            if _warp_pallas(config):
-                flow_pw = halo_exchange(
-                    flow, r_img, r_img, axis_name, n, row_axis=-3
-                )
-                flow_p = _crop_rows(flow_pw, d + 2, -3)
-            else:
-                flow_pw = halo_exchange(
-                    flow, r_e, r_e, axis_name, n, row_axis=-3
-                )
-                flow_p = flow_pw
+            flow_p = halo_exchange(flow, r_e, r_e, axis_name, n, row_axis=-3)
             warped = _band_warp(
                 nxt, flow, config, axis_name, n, row0, h_global, r_e,
-                nxt_p=nxt_p, flow_p=flow_pw,
+                nxt_p=nxt_p, flow_p=flow_p,
             )
             w_exp = _banded_expansion(warped, config, row0 - r_e, h_global)
             u, v = flow_p[..., 0], flow_p[..., 1]
@@ -559,28 +374,20 @@ def validate_spatial_fb(h: int, w: int, config: FBConfig, n: int) -> None:
             "(warp_planes='image'); the coefficient-warp form would "
             "silently diverge from pyramidal_farneback"
         )
-    _validate_pallas_band_width(w, config, "FB")
     top = config.levels - 1
     if h % (n << top) or (top and w % (1 << top)):
         raise ValueError(
             f"spatial FB needs H divisible by n_shards * 2^(levels-1) "
             f"= {n << top} and W by {1 << top}; got {h}x{w}"
         )
-    _, r_poly, r_e = _fb_radii(config)
+    _, _, r_e = _fb_radii(config)
     r_img = r_e + int(math.ceil(config.max_displacement)) + 2
-    fused = _fb_fused_enabled(config)
-    # the fused local exchanges halo + r_poly rows of prev on EVERY level
-    # (expansion happens on the widest band, _local_fb_level_fused)
-    need_fused = _fb_fused_halo(config) + r_poly
     for lvl in range(config.levels):
         hk = (h >> lvl) // n
         # every level past the coarsest warps (needs r_img); the coarsest
         # only expands/windows (r_e), but iterations > 1 warp there too
         warps = lvl < top or config.iterations > 1
-        if fused:
-            need = max(need_fused, 2)
-        else:
-            need = max(r_img if warps else r_e, 2)
+        need = max(r_img if warps else r_e, 2)
         if hk < need:
             raise ValueError(
                 f"FB level {lvl} holds {hk} rows/shard but its halos need "
@@ -599,23 +406,19 @@ def spatial_pyramidal_fb(
     h, w = prev.shape[-2:]
     n = mesh.shape[axis_name]
     validate_spatial_fb(h, w, config, n)
-    return _spatial_fb_jit(config, mesh, axis_name, n, h, _interp_key())(
-        prev, nxt
-    )
+    return _spatial_fb_jit(config, mesh, axis_name, n, h)(prev, nxt)
 
 
 @functools.lru_cache(maxsize=128)
 def _spatial_fb_jit(
     config: FBConfig, mesh: Mesh, axis_name: str, n: int, h: int,
-    interp: bool,
 ):
-    local, check_vma = _family_local(config, axis_name, n, h, 0, 0)
+    local = _family_local(config, axis_name, n, h, 0, 0)
     fn = shard_map(
         local,
         mesh=mesh,
         in_specs=(P(axis_name, None), P(axis_name, None)),
         out_specs=P(axis_name, None, None),
-        check_vma=check_vma,
     )
     return jax.jit(fn)
 
@@ -650,8 +453,7 @@ def _tvl1_pd_band(consts, state, row0_pad, h_global, config, iters):
     The band's Neumann boundaries must sit at the GLOBAL image edges, not the
     band edges: forward differences are masked to zero at the last global
     row/column (which keeps the dual planes zero there, making the roll-free
-    backward divergence reproduce the unsharded special cases — the same
-    argument as kernels/tvl1_sweep.py).  Band-edge staleness advances one row
+    backward divergence reproduce the unsharded special cases).  Band-edge staleness advances one row
     per iteration and is cropped by the caller's trapezoid.
     """
     gx, gy, itp, th, inv_g2s = consts
@@ -706,19 +508,8 @@ def _local_tvl1_level(prev, nxt, flow, config, axis_name, n, row0, h_global,
                       iter_tile):
     """One TV-L1 level on a row shard: per-warp banded relinearizations with
     time-tiled primal-dual chunks (``iter_tile`` iterations per exchange).
-
-    With ``config.use_pallas`` each chunk runs ONE invocation of the
-    time-tiled Pallas kernel on the exchanged band
-    (kernels/tvl1_sweep.tvl1_relax_band, global-coordinate Neumann
-    boundary, six-plane carried state); the linearization constants are
-    recomputed in-kernel from the resident frame/flow bands.
     """
-    pallas = _sweep_pallas(config)
     k = min(iter_tile, config.iterations)
-    if pallas:
-        from cuda_optical_flow_2_tpu.kernels import lk_fused, tvl1_sweep
-
-        k = min(k, tvl1_sweep.MAX_ITERS)
     rg = k + 2
     d = int(math.ceil(config.max_displacement))
     r_img = rg + d + 2
@@ -731,29 +522,19 @@ def _local_tvl1_level(prev, nxt, flow, config, axis_name, n, row0, h_global,
 
     for _ in range(config.warps):
         flow = jnp.clip(flow, -config.max_displacement, config.max_displacement)
-        if _warp_pallas(config):
-            # one wide exchange serves both the select-warp (r_img) and the
-            # linearization band (rg = r_img - d - 2, cropped view)
-            flow_pw = halo_exchange(flow, r_img, r_img, axis_name, n,
-                                    row_axis=-3)
-            flow_p = _crop_rows(flow_pw, d + 2, -3)
-        else:
-            flow_pw = halo_exchange(flow, rg, rg, axis_name, n, row_axis=-3)
-            flow_p = flow_pw
+        flow_p = halo_exchange(flow, rg, rg, axis_name, n, row_axis=-3)
         warped_p = _band_warp(
             nxt, flow, config, axis_name, n, row0, h_global, rg,
-            nxt_p=nxt_pw, flow_p=flow_pw,
+            nxt_p=nxt_pw, flow_p=flow_p,
         )
         u0u, u0v = flow_p[..., 0], flow_p[..., 1]
-        if not pallas:
-            # Linearization constants on the full rg band (Sobel ring stays
-            # 2 rows clear of the iteration band), then cropped to the k
-            # band.
-            consts_f = _tvl1_constants(
-                prev_p, warped_p, u0u, u0v, row0 - rg, h_global, config
-            )
-            # rg - k == 2: drop the Sobel-ring margin rows.
-            consts = tuple(_crop_rows(x, rg - k, -2) for x in consts_f)
+        # Linearization constants on the full rg band (Sobel ring stays 2
+        # rows clear of the iteration band), then cropped to the k band.
+        consts_f = _tvl1_constants(
+            prev_p, warped_p, u0u, u0v, row0 - rg, h_global, config
+        )
+        # rg - k == 2: drop the Sobel-ring margin rows.
+        consts = tuple(_crop_rows(x, rg - k, -2) for x in consts_f)
         # time-tiled primal-dual: duals carried between chunks
         zl = jnp.zeros_like(prev)
         state_loc = (flow[..., 0], flow[..., 1], zl, zl, zl, zl)
@@ -762,22 +543,6 @@ def _local_tvl1_level(prev, nxt, flow, config, axis_name, n, row0, h_global,
         for _c in range(n_chunks):
             s = min(k, left)
             left -= s
-            if pallas:
-                stacked = halo_exchange(
-                    jnp.stack(state_loc), rg, rg, axis_name, n, row_axis=-2
-                )
-                state_b = tvl1_sweep.tvl1_relax_band(
-                    prev_p, warped_p, flow_p,
-                    tuple(stacked[i] for i in range(6)),
-                    row0 - rg, h_global,
-                    iterations=s, lambda_=config.lambda_,
-                    theta=config.theta, tau=config.tau,
-                    eps=config.epsilon,
-                    interpret=lk_fused.interpret_forced(),
-                    vma=(axis_name,),
-                )
-                state_loc = tuple(_crop_rows(x, rg, -2) for x in state_b)
-                continue
             stacked = halo_exchange(
                 jnp.stack(state_loc), k, k, axis_name, n, row_axis=-2
             )
@@ -809,7 +574,6 @@ def validate_spatial_tvl1(
     h: int, w: int, config, n: int, iter_tile: int = 8
 ) -> None:
     validate_prefilter_shards(h, n, config, w)
-    _validate_pallas_band_width(w, config, "TV-L1")
     top = config.levels - 1
     if h % (n << top) or (top and w % (1 << top)):
         raise ValueError(
@@ -845,23 +609,19 @@ def spatial_pyramidal_tvl1(
     h, w = prev.shape[-2:]
     n = mesh.shape[axis_name]
     validate_spatial_tvl1(h, w, config, n, iter_tile)
-    return _spatial_tvl1_jit(
-        config, mesh, axis_name, n, h, iter_tile, _interp_key()
-    )(prev, nxt)
+    return _spatial_tvl1_jit(config, mesh, axis_name, n, h, iter_tile)(prev, nxt)
 
 
 @functools.lru_cache(maxsize=128)
 def _spatial_tvl1_jit(
     config, mesh: Mesh, axis_name: str, n: int, h: int, iter_tile: int,
-    interp: bool,
 ):
-    local, check_vma = _family_local(config, axis_name, n, h, 0, iter_tile)
+    local = _family_local(config, axis_name, n, h, 0, iter_tile)
     fn = shard_map(
         local,
         mesh=mesh,
         in_specs=(P(axis_name, None), P(axis_name, None)),
         out_specs=P(axis_name, None, None),
-        check_vma=check_vma,
     )
     return jax.jit(fn)
 
@@ -898,22 +658,12 @@ def _local_dis_refine(
     and temporal-stencil margins), with gradients zeroed outside the GLOBAL
     image and the count plane restricted to in-global rows — exactly the
     unsharded centering.  Then ``k``-sweep chunks relax the total flow per
-    halo exchange: time-tiled Pallas band kernel (hs_relax_band +
-    ``it_offset``) when enabled, the XLA Jacobi loop as its twin.
-    Layout rule (docs/PERF.md DIS section): every plane feeding the Pallas
-    kernel comes from shift-form stencils / cumsum window sums, never
-    lax.conv.
+    halo exchange.
     """
     if config.refine_iterations <= 0:
         return flow
     lk_like = _dis_lk_like(config)
-    pallas_sweep = _sweep_pallas(config)
-    if pallas_sweep:
-        from cuda_optical_flow_2_tpu.kernels import hs_sweep
-
-        k = min(sweep_tile, config.refine_iterations, hs_sweep.MAX_SWEEPS)
-    else:
-        k = min(sweep_tile, config.refine_iterations)
+    k = min(sweep_tile, config.refine_iterations)
     rg = k + 2
     m = (config.window // 2 + 1) if config.mean_normalize else 1
     rp = rg + m
@@ -953,28 +703,7 @@ def _local_dis_refine(
         else None
     )
 
-    if pallas_sweep:
-        from cuda_optical_flow_2_tpu.kernels import hs_sweep, lk_fused
-
-        c = rp - rg
-        prev_b = _crop_rows(prev_p, c)
-        warped_b = _crop_rows(warped_p, c)
-        off_b = _crop_rows(off, c)
-        for _ in range(n_chunks):
-            s = min(k, sweeps_left)
-            sweeps_left -= s
-            uv_p = halo_exchange(uv, rg, rg, axis_name, n, row_axis=-3)
-            uv_p = hs_sweep.hs_relax_band(
-                prev_b, warped_b, uv_p, row0 - rg, h_global,
-                sweeps=s, alpha=config.refine_alpha,
-                temporal_kernel=config.temporal_kernel,
-                interpret=lk_fused.interpret_forced(), vma=(axis_name,),
-                it_offset=off_b, robust=robust,
-            )
-            uv = _crop_rows(uv_p, rg, -3)
-        return uv
-
-    # XLA twin: k-halo gradient bands (k+1 under the Charbonnier penalty —
+    # k-halo gradient bands    # XLA twin: k-halo gradient bands (k+1 under the Charbonnier penalty —
     # the lagged weights' central-difference ring needs chunk-start flow
     # one row beyond the sweep trapezoid), data term constant across
     # sweeps, weights recomputed per chunk (models/dis._robust_relax_xla
@@ -1035,9 +764,9 @@ def _local_dis_level(
     sweep_tile,
 ):
     """One DIS pyramid level on a row shard: centered inverse-search steps
-    (spatial._local_lk_level with ``centered=mean_normalize`` — the fused
-    band kernel's centered mode / the centered banded residual) followed by
-    the banded variational refinement."""
+    (spatial._local_lk_level with ``centered=mean_normalize`` — the
+    centered banded residual) followed by the banded variational
+    refinement."""
     flow = _local_lk_level(
         prev, nxt, flow, _dis_lk_like(config), axis_name, n, h_global,
         centered=config.mean_normalize,
@@ -1051,7 +780,6 @@ def validate_spatial_dis(
     h: int, w: int, config: DISConfig, n: int, sweep_tile: int = 8
 ) -> None:
     validate_prefilter_shards(h, n, config, w)
-    _validate_pallas_band_width(w, config, "DIS")
     top = config.levels - 1
     if h % (n << top) or (top and w % (1 << top)):
         raise ValueError(
@@ -1096,7 +824,7 @@ def spatial_pyramidal_dis(
     Under ``refine_penalty="charbonnier"`` the chunk size is SEMANTIC (the
     lagged weights recompute once per chunk), so ``sweep_tile`` also sets
     the IRLS cadence; the unsharded path recomputes every
-    ``min(kernels.hs_sweep.MAX_SWEEPS, refine_iterations)`` sweeps — pass
+    ``min(horn_schunck.ROBUST_CHUNK, refine_iterations)`` sweeps — pass
     ``sweep_tile`` >= that for exact structural parity (automatic whenever
     ``refine_iterations <= sweep_tile``).  The quadratic penalty is
     cadence-invariant.
@@ -1104,23 +832,20 @@ def spatial_pyramidal_dis(
     h, w = prev.shape[-2:]
     n = mesh.shape[axis_name]
     validate_spatial_dis(h, w, config, n, sweep_tile)
-    return _spatial_dis_jit(
-        config, mesh, axis_name, n, h, sweep_tile, _interp_key()
-    )(prev, nxt)
+    return _spatial_dis_jit(config, mesh, axis_name, n, h, sweep_tile)(prev, nxt)
 
 
 @functools.lru_cache(maxsize=128)
 def _spatial_dis_jit(
     config: DISConfig, mesh: Mesh, axis_name: str, n: int, h: int,
-    sweep_tile: int, interp: bool,
+    sweep_tile: int,
 ):
-    local, check_vma = _family_local(config, axis_name, n, h, sweep_tile, 0)
+    local = _family_local(config, axis_name, n, h, sweep_tile, 0)
     fn = shard_map(
         local,
         mesh=mesh,
         in_specs=(P(axis_name, None), P(axis_name, None)),
         out_specs=P(axis_name, None, None),
-        check_vma=check_vma,
     )
     return jax.jit(fn)
 
@@ -1160,60 +885,38 @@ def _local_family_pipeline(
 
 
 def _family_local(config, axis_name, n, h, sweep_tile, iter_tile):
-    """(shard-local pipeline fn, check_vma) for a config's model family.
+    """Shard-local pipeline fn for a config's model family.
 
     The single dispatch point behind every spatial_pyramidal_* entry and
-    :func:`grid_pyramidal_flow`.  ``check_vma`` is False whenever any Pallas
-    band kernel may dispatch (shard_map cannot see through pallas_call's
-    mixed-vma index arithmetic — spatial._fused_enabled docstring).
+    :func:`grid_pyramidal_flow`.
     """
     if isinstance(config, HSConfig):
         def level_fn(p, nx, flow, row0, hg):
             return _local_hs_level(
                 p, nx, flow, config, axis_name, n, row0, hg, sweep_tile
             )
-        cv = not (
-            _prefilter_pallas(config) or _warp_pallas(config)
-            or _sweep_pallas(config)
-        )
     elif isinstance(config, FBConfig):
         def level_fn(p, nx, flow, row0, hg):
             return _local_fb_level(
                 p, nx, flow, config, axis_name, n, row0, hg
             )
-        cv = not (
-            _prefilter_pallas(config) or _fb_fused_enabled(config)
-            # the non-fused branch still warps via the select kernel
-            or _warp_pallas(config)
-        )
     elif isinstance(config, TVL1Config):
         def level_fn(p, nx, flow, row0, hg):
             return _local_tvl1_level(
                 p, nx, flow, config, axis_name, n, row0, hg, iter_tile
             )
-        cv = not (
-            _prefilter_pallas(config) or _warp_pallas(config)
-            or _sweep_pallas(config)
-        )
     elif isinstance(config, DISConfig):
         def level_fn(p, nx, flow, row0, hg):
             return _local_dis_level(
                 p, nx, flow, config, axis_name, n, row0, hg, sweep_tile
             )
-        cv = not (
-            _prefilter_pallas(config) or _warp_pallas(config)
-            or _sweep_pallas(config)
-            or _fused_enabled(_dis_lk_like(config))
-        )
     elif isinstance(config, LKConfig):
         from cuda_optical_flow_2_tpu.parallel.spatial import _local_pipeline
 
         def local(prev_blk, nxt_blk):
             return _local_pipeline(prev_blk, nxt_blk, config, axis_name, n, h)
 
-        return local, not (
-            _fused_enabled(config) or _prefilter_pallas(config)
-        )
+        return local
     else:
         raise TypeError(
             f"config must be an LKConfig / HSConfig / FBConfig / TVL1Config "
@@ -1228,7 +931,7 @@ def _family_local(config, axis_name, n, h, sweep_tile, iter_tile):
             prev_blk, nxt_blk, config, axis_name, n, h, level_fn, finest
         )
 
-    return local, cv
+    return local
 
 
 def validate_spatial_flow(
@@ -1302,17 +1005,16 @@ def grid_pyramidal_flow(
         raise ValueError(f"batch {b} not divisible by {batch_axis} size {nb}")
     validate_spatial_flow(h, w, config, ns, sweep_tile, iter_tile)
     return _grid_flow_jit(
-        config, mesh, batch_axis, space_axis, ns, h, sweep_tile, iter_tile,
-        _interp_key(),
+        config, mesh, batch_axis, space_axis, ns, h, sweep_tile, iter_tile
     )(prev_batch, nxt_batch)
 
 
 @functools.lru_cache(maxsize=128)
 def _grid_flow_jit(
     config, mesh: Mesh, batch_axis: str, space_axis: str, ns: int, h: int,
-    sweep_tile: int, iter_tile: int, interp: bool,
+    sweep_tile: int, iter_tile: int,
 ):
-    local, check_vma = _family_local(
+    local = _family_local(
         config, space_axis, ns, h, sweep_tile, iter_tile
     )
 
@@ -1324,6 +1026,5 @@ def _grid_flow_jit(
         mesh=mesh,
         in_specs=(P(batch_axis, space_axis, None),) * 2,
         out_specs=P(batch_axis, space_axis, None, None),
-        check_vma=check_vma,
     )
     return jax.jit(fn)

@@ -14,8 +14,10 @@ Backends:
 
 * ``"xla"``     — the pure-XLA ops (``use_pallas=False``); the default
   comparison baseline.
-* ``"pallas"``  — the Pallas kernels (interpret mode off-TPU, so this runs
-  anywhere).
+* ``"pallas"``  — the hand-written kernel (the fused LK residual,
+  kernels/lk_fused.py): compiled on the GPU, in interpret mode elsewhere.
+  The per-level and end-to-end rows take it only on the GPU, where the
+  model dispatch really routes to it.
 * ``"banded"``  — the spatial-TP shard-local math, emulated in-process: rows
   are split into ``n_bands`` bands, each stage runs on a halo-extended band
   (halo rows sliced from the full array — exactly what ``ppermute`` halo
@@ -26,8 +28,9 @@ Backends:
 * ``"oracle"``  — the NumPy float twins (oracle/gpu_reference), where a twin
   of the stage exists (the Lucas-Kanade residual stages).
 
-Stages that a backend cannot isolate (e.g. gradients inside the fused Pallas
-kernel) are skipped for that backend, not faked.
+Stages that a backend cannot isolate (e.g. gradients inside the fused
+kernel, or any stage of a family without a kernel) are skipped for that
+backend, not faked.
 
 CLI: ``python -m cuda_optical_flow_2_tpu.cli.diff --model fb --size 256x64``.
 """
@@ -139,39 +142,34 @@ def banded(fn: Callable, halo: int, n_bands: int, row_axis: int = -2,
 
 
 def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
+    """Kernels compile for the GPU and run interpreted everywhere else."""
+    return jax.default_backend() != "gpu"
+
+
+def _with_kernel(config, backend: str):
+    """``config`` for a whole-level/pipeline row of ``backend``, or None.
+
+    The "pallas" rows exist only on the GPU (elsewhere the dispatch runs
+    the XLA twin, so the row would diff XLA against itself) and only for
+    families whose config selects the kernel.
+    """
+    if backend == "xla":
+        if hasattr(config, "use_pallas"):
+            return dataclasses.replace(config, use_pallas=False)
+        return config
+    if backend == "pallas" and not _interpret() and hasattr(config, "use_pallas"):
+        return dataclasses.replace(config, use_pallas=True)
+    return None
 
 
 def _make_warp_stage(nxt_l, clamped, config, n_bands):
-    """Shared 'warp' stage runner (LK and FB use the identical stage).
-
-    Threads the config's ``c_max`` into the select warp — the production
-    kernels run the config value (default 1), so the A/B row must too, or a
-    c_max-induced divergence (the documented staircase caveat, docs/PERF.md)
-    would vanish from the very report built to localize it.
-    """
+    """Shared 'warp' stage runner (LK and FB use the identical stage)."""
 
     def warp(backend):
         if backend == "xla":
             from cuda_optical_flow_2_tpu.ops.warp import warp_bilinear
 
             return warp_bilinear(nxt_l, clamped)
-        if backend == "pallas":
-            from cuda_optical_flow_2_tpu.kernels import warp_select
-
-            # Same gate as the production dispatcher (_pick_warp): an
-            # unsupported shape/config must SKIP the row, not abort the
-            # whole report with a Pallas launch failure on TPU.
-            if not (
-                warp_select.supported(nxt_l, config.max_displacement)
-                or _interpret()
-            ):
-                return None
-            return warp_select.warp_bilinear_select(
-                nxt_l, clamped, max_displacement=config.max_displacement,
-                d_local=config.d_local, c_max=config.c_max,
-                interpret=_interpret(),
-            )
         if backend == "banded":
             from cuda_optical_flow_2_tpu.ops.warp import warp_bilinear_band
 
@@ -307,9 +305,7 @@ def _lk_stages(prev_l, nxt_l, flow_in, config, n_bands):
         if backend == "pallas":
             from cuda_optical_flow_2_tpu.kernels import lk_fused
 
-            # supported() already passes under forced interpret; the same
-            # skip-not-crash contract as the warp/expand/window_solve rows.
-            if not lk_fused.supported(prev_l, config):
+            if config.window > lk_fused.MAX_WINDOW:
                 return None
             return lk_fused.lk_residual(
                 prev_l, nxt_w, config, interpret=_interpret()
@@ -330,12 +326,8 @@ def _lk_stages(prev_l, nxt_l, flow_in, config, n_bands):
         return None
 
     def level(backend):
-        if backend in ("xla", "pallas"):
-            return lk_level(
-                prev_l, nxt_l, flow_in,
-                dataclasses.replace(config, use_pallas=backend == "pallas"),
-            )
-        return None
+        cfg = _with_kernel(config, backend)
+        return None if cfg is None else lk_level(prev_l, nxt_l, flow_in, cfg)
 
     return {
         "gradients": grads,
@@ -380,18 +372,6 @@ def _fb_stages(prev_l, nxt_l, flow_in, config, n_bands):
     def expand(backend):
         if backend == "xla":
             return poly_expansion(prev_l, config.poly_n, config.poly_sigma)
-        if backend == "pallas":
-            from cuda_optical_flow_2_tpu.kernels import poly_exp_fused
-
-            if not (
-                poly_exp_fused.supported(prev_l, config.poly_n)
-                or _interpret()
-            ):
-                return None
-            return poly_exp_fused.poly_expansion_kernel(
-                prev_l, config.poly_n, config.poly_sigma,
-                interpret=_interpret(),
-            )
         if backend == "banded":
             return banded(
                 lambda f: poly_expansion(f, config.poly_n, config.poly_sigma),
@@ -404,25 +384,10 @@ def _fb_stages(prev_l, nxt_l, flow_in, config, n_bands):
 
     def window_solve(backend):
         if backend == "xla":
-            return _window_solve(
-                prods, dataclasses.replace(config, use_pallas=False)
-            )
-        if backend == "pallas":
-            from cuda_optical_flow_2_tpu.kernels import win_solve
-
-            if config.gaussian_window or not (
-                win_solve.supported(prods[0], config.winsize) or _interpret()
-            ):
-                return None
-            return win_solve.window_solve(
-                *prods, window=config.winsize, det_eps=config.det_eps,
-                interpret=_interpret(),
-            )
+            return _window_solve(prods, config)
         if backend == "banded":
             return banded(
-                lambda *p: _window_solve(
-                    p, dataclasses.replace(config, use_pallas=False)
-                ),
+                lambda *p: _window_solve(p, config),
                 config.winsize // 2,
                 n_bands,
                 out_row_axis=-3,
@@ -430,11 +395,8 @@ def _fb_stages(prev_l, nxt_l, flow_in, config, n_bands):
         return None
 
     def level(backend):
-        if backend in ("xla", "pallas"):
-            return fb_level_image(
-                nxt_l, exp1, flow_in,
-                dataclasses.replace(config, use_pallas=backend == "pallas"),
-            )
+        if backend == "xla":
+            return fb_level_image(nxt_l, exp1, flow_in, config)
         return None
 
     return {
@@ -455,19 +417,13 @@ def _hs_stages(prev_l, nxt_l, flow_in, config, n_bands):
     nxt_w = warp_bilinear(nxt_l, clamped)
 
     def sweeps(backend):
-        if backend in ("xla", "pallas"):
-            return hs_level(
-                prev_l, nxt_w, None,
-                dataclasses.replace(config, use_pallas=backend == "pallas"),
-            )
+        if backend == "xla":
+            return hs_level(prev_l, nxt_w, None, config)
         return None
 
     def level(backend):
-        if backend in ("xla", "pallas"):
-            return clamped + hs_level(
-                prev_l, nxt_w, None,
-                dataclasses.replace(config, use_pallas=backend == "pallas"),
-            )
+        if backend == "xla":
+            return clamped + hs_level(prev_l, nxt_w, None, config)
         return None
 
     return {"sweeps": sweeps, "level": level}
@@ -482,11 +438,8 @@ def _tvl1_stages(prev_l, nxt_l, flow_in, config, n_bands):
     warped = warp_bilinear(nxt_l, clamped)
 
     def sweeps(backend):
-        if backend in ("xla", "pallas"):
-            return tvl1_level(
-                prev_l, warped, clamped, clamped,
-                dataclasses.replace(config, use_pallas=backend == "pallas"),
-            )
+        if backend == "xla":
+            return tvl1_level(prev_l, warped, clamped, clamped, config)
         return None
 
     return {"sweeps": sweeps}
@@ -502,26 +455,22 @@ def _dis_stages(prev_l, nxt_l, flow_in, config, n_bands):
     clamped = jnp.clip(flow_in, -config.max_displacement, config.max_displacement)
     warped = warp_bilinear(nxt_l, clamped)
 
-    def _cfg(backend):
-        return dataclasses.replace(config, use_pallas=backend == "pallas")
-
     def search(backend):
-        if backend in ("xla", "pallas"):
-            return dis_level(
-                prev_l, warped, None,
-                dataclasses.replace(_cfg(backend), refine_iterations=0),
-            )
-        return None
+        cfg = _with_kernel(config, backend)
+        if cfg is None:
+            return None
+        return dis_level(
+            prev_l, warped, None, dataclasses.replace(cfg, refine_iterations=0)
+        )
 
     def refine(backend):
-        if backend in ("xla", "pallas"):
-            return _refine(prev_l, nxt_l, clamped, _cfg(backend))
+        if backend == "xla":
+            return _refine(prev_l, nxt_l, clamped, config)
         return None
 
     def level(backend):
-        if backend in ("xla", "pallas"):
-            return dis_level(prev_l, nxt_l, flow_in, _cfg(backend))
-        return None
+        cfg = _with_kernel(config, backend)
+        return None if cfg is None else dis_level(prev_l, nxt_l, flow_in, cfg)
 
     return {"search": search, "refine": refine, "level": level}
 
@@ -533,10 +482,8 @@ def _flow_runner(prev, nxt, config):
 
     def run(backend):
         if backend in ("xla", "pallas"):
-            return pyramidal_flow(
-                prev, nxt,
-                dataclasses.replace(config, use_pallas=backend == "pallas"),
-            )
+            cfg = _with_kernel(config, backend)
+            return None if cfg is None else pyramidal_flow(prev, nxt, cfg)
         if backend == "sharded":
             import cuda_optical_flow_2_tpu.models.farneback as fb
             import cuda_optical_flow_2_tpu.models.horn_schunck as hs
@@ -597,7 +544,7 @@ def _canonical_levels(prev, nxt, config):
     from cuda_optical_flow_2_tpu.models.streaming import _flow, _preprocess
     from cuda_optical_flow_2_tpu.ops.resize import upsample_flow
 
-    xla_cfg = dataclasses.replace(config, use_pallas=False)
+    xla_cfg = _with_kernel(config, "xla")
     prev_pyr = _preprocess(prev, xla_cfg)
     next_pyr = _preprocess(nxt, xla_cfg)
     flow_in: dict[int, jax.Array] = {}
@@ -647,8 +594,6 @@ def stage_report(
     differences localize to the stage, not to error accumulated upstream.
     The level's rows must divide by ``n_bands`` for the banded backend.
     """
-    import os
-
     known = {"xla", "pallas", "banded", "oracle", "sharded"}
     bad = [b for b in (*backends, baseline) if b not in known]
     if bad:
@@ -666,76 +611,51 @@ def stage_report(
     factory = stages_for(config)
     out: list[StageDiff] = []
     lvls = levels if levels is not None else tuple(range(config.levels))
-    # Off-TPU, the model-level dispatchers silently fall back to XLA unless
-    # interpret mode is forced — which would make every "pallas" row a
-    # vacuous diff of XLA against itself.  Force it for the report.
-    force_interp = "pallas" in backends and _interpret()
-    saved = os.environ.get("OF2_PALLAS_INTERPRET")
-    if force_interp:
-        os.environ["OF2_PALLAS_INTERPRET"] = "1"
-    try:
-        for k in lvls:
-            runners = factory(
-                prev_pyr[k], next_pyr[k], flow_in[k], config, n_bands
-            )
-            for name, run in runners.items():
-                if stages is not None and name not in stages:
-                    continue
-                base = run(baseline)
-                if base is None:
-                    continue
-                base = jax.tree.map(np.asarray, base)
-                for backend in backends:
-                    got = run(backend)
-                    if got is None:
-                        continue
-                    mx, mean = _diff(base, jax.tree.map(np.asarray, got))
-                    out.append(
-                        StageDiff(
-                            k, name, backend, baseline, mx, mean,
-                            tuple(
-                                np.shape(
-                                    base[0] if isinstance(base, tuple) else base
-                                )
-                            ),
-                        )
-                    )
-        if stages is None or "flow" in stages:
-            run = _flow_runner(prev, nxt, config)
+    for k in lvls:
+        runners = factory(
+            prev_pyr[k], next_pyr[k], flow_in[k], config, n_bands
+        )
+        for name, run in runners.items():
+            if stages is not None and name not in stages:
+                continue
             base = run(baseline)
             if base is None:
-                # Same skip contract as the per-stage loop: e.g. the
-                # "oracle" baseline has no end-to-end flow runner.
-                return out
-            base_np = np.asarray(base)
+                continue
+            base = jax.tree.map(np.asarray, base)
             for backend in backends:
                 got = run(backend)
                 if got is None:
                     continue
-                mx, mean = _diff(base_np, np.asarray(got))
+                mx, mean = _diff(base, jax.tree.map(np.asarray, got))
                 out.append(
                     StageDiff(
-                        -1, "flow", backend, baseline, mx, mean,
-                        tuple(base_np.shape),
+                        k, name, backend, baseline, mx, mean,
+                        tuple(
+                            np.shape(
+                                base[0] if isinstance(base, tuple) else base
+                            )
+                        ),
                     )
                 )
-    finally:
-        if force_interp:
-            if saved is None:
-                os.environ.pop("OF2_PALLAS_INTERPRET", None)
-            else:
-                os.environ["OF2_PALLAS_INTERPRET"] = saved
-            # Cache-poisoning note: the flag is read at TRACE time, so an
-            # executable cached while it was forced would silently stay in
-            # interpret mode.  No such executable can outlive this scope:
-            # every kernel jit keys on an explicit `interpret` static arg,
-            # and the lru-cached parallel/* entry points key on
-            # interpret_forced() (spatial._interp_key) so entries traced
-            # inside this window never serve non-forced callers (and vice
-            # versa).  The persistent jit wrappers (pyramidal_*_jit,
-            # streaming.step) are never called here — but the override IS
-            # process-global, so don't trace those from OTHER threads while
-            # a stage_report is in flight off-TPU.
+    if stages is None or "flow" in stages:
+        run = _flow_runner(prev, nxt, config)
+        base = run(baseline)
+        if base is None:
+            # Same skip contract as the per-stage loop: e.g. the
+            # "oracle" baseline has no end-to-end flow runner.
+            return out
+        base_np = np.asarray(base)
+        for backend in backends:
+            got = run(backend)
+            if got is None:
+                continue
+            mx, mean = _diff(base_np, np.asarray(got))
+            out.append(
+                StageDiff(
+                    -1, "flow", backend, baseline, mx, mean,
+                    tuple(base_np.shape),
+                )
+            )
     return out
 
 

@@ -2,8 +2,10 @@
 
 The compute path is JAX/XLA; the host-side frame pipeline (grayscale
 conversion, synthetic generation, PPM decode) is C++ for throughput, loaded
-here via ctypes with transparent NumPy fallbacks, so the framework works
-whether or not the .so has been built (``make -C native``).  ``available()``
+here via ctypes with transparent NumPy fallbacks.  The library is built from
+native/framesrc.cpp at first use (or ahead of time by ``make -C native``),
+under a file lock so concurrent processes build it once; without a C++
+toolchain the NumPy paths run instead.  ``available()``
 reports which path is active; every wrapper returns identical results either
 way (the native grayscale ops are bit-exact twins of the oracle).
 """
@@ -41,7 +43,7 @@ def _try_load() -> ctypes.CDLL | None:
     if _load_attempted:
         return _lib
     _load_attempted = True
-    if not os.path.exists(_SO_PATH):
+    if not os.path.exists(_SO_PATH) and not _make():
         return None
     try:
         lib = ctypes.CDLL(_SO_PATH)
@@ -119,16 +121,26 @@ def _try_load() -> ctypes.CDLL | None:
     return _lib
 
 
+def _make(quiet: bool = True) -> bool:
+    """Run ``make -C native`` under an exclusive lock on
+    ``native/.build.lock``, so concurrent processes never race the build."""
+    import fcntl
+
+    try:
+        with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            subprocess.run(
+                ["make", "-C", _NATIVE_DIR], check=True, capture_output=quiet
+            )
+    except (OSError, subprocess.CalledProcessError):
+        return False
+    return True
+
+
 def build(quiet: bool = True) -> bool:
     """Build the native library in place (requires g++/make); returns success."""
     global _load_attempted
-    try:
-        subprocess.run(
-            ["make", "-C", _NATIVE_DIR],
-            check=True,
-            capture_output=quiet,
-        )
-    except (subprocess.CalledProcessError, FileNotFoundError):
+    if not _make(quiet):
         return False
     _load_attempted = False
     return _try_load() is not None
@@ -218,7 +230,7 @@ class FrameStream:
     The data-loader of the streaming pipeline: where the reference's main
     loop serializes capture with compute (main.cu:222-275), here a C++
     worker thread decodes/generates/grayscales frames ahead of the consumer
-    so host-side frame prep overlaps TPU compute.  Iterates (index, frame)
+    so host-side frame prep overlaps device compute.  Iterates (index, frame)
     pairs; frames are (H, W) float32.  Falls back to synchronous Python
     generation/decoding when the native library isn't built — identical
     frames either way.

@@ -12,12 +12,11 @@ cv2 anchors, checking that the small-scale conclusions transfer.
 
 Scene: a band-limited analytic sinusoid texture (utils.layered._texture)
 evaluated exactly at warped coordinates — truth has NO resampling error,
-and both global translation (d_local clamping active at 6-px motion) and
-rotation (spatially varying flow -> per-tile recentering live across the
-full 1920-lane span) are exercised.
+and both global translation (6-px motion) and rotation (spatially varying
+flow across the full 1920-pixel width) are exercised.
 
-Conclusions checked (committed run, round 5 — one v5e chip, interior
-EPE, margin 48):
+Conclusions checked (committed run, round 5, interior EPE, margin 48;
+EPE is a property of the algorithm, not of the device it ran on):
 
 1. **Window-weights win transfers.**  The production "tri" default is
    best on BOTH 1080p cases with the same ordering as 192x256:
@@ -43,9 +42,9 @@ No d_local-clamping or tile-recentering anomaly appears at full
 resolution: every family's 1080p EPE is within ~2x of its small-scale
 value with the same ordering of variants.
 
-Run: python docs/studies/anchor_1080p_study.py      (TPU host, ~5 min
-warm; cv2 anchors run on the host CPU.  CI-optional by design — the
-fast tier covers the same mechanisms at 192x256.)
+Run: python docs/studies/anchor_1080p_study.py      (on the GPU; cv2
+anchors run on the host CPU.  CI-optional by design — the fast tier
+covers the same mechanisms at 192x256.)
 """
 
 from __future__ import annotations
@@ -57,9 +56,6 @@ sys.path.insert(
     0,
     os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."),
 )
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", os.path.join(
-    os.path.dirname(os.path.abspath(__file__)), "..", "..", ".jax_cache"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0.5")
 
 import dataclasses
 
@@ -198,4 +194,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    from cuda_optical_flow_2_tpu.utils.profiling import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -35,10 +35,9 @@ bar step to 4.67 px (band 2.172) while Charbonnier holds 3.95 px (band
 a->boundary-damage trend (4.01 -> 4.16 -> 4.67 px for a=20/40/80) simply
 does not appear under Charbonnier at fixed es.
 
-Default decision (accuracy/fps A/B, docs/PERF.md "DIS robust
-refinement"): a robust sweep costs 1.56x a quadratic one (0.126 vs 0.081
-ms marginal at 1080p), -5 % fps at the 5-sweep default (139.7 -> 132.7).
-The default stays ``quadratic``/alpha=20 for bit-comparable continuity
+Default decision: a robust sweep does more work per sweep than a
+quadratic one (its cost on the GPU is not measured yet).  The default
+stays ``quadratic``/alpha=20 for bit-comparable continuity
 with three rounds of anchor tables; the RECOMMENDED accuracy operating
 point is ``refine_penalty="charbonnier", refine_alpha=40,
 refine_eps_data=10`` — strictly better than the default on every
@@ -52,12 +51,10 @@ charb a=40 reaches bar matched 0.257 / band 2.17, numbers quadratic HS
 never reaches at any alpha (best 0.286 / 2.30 at a=60, worsening beyond)
 — and the optimal alpha doubles vs quadratic (the sub-1 weights reduce
 effective smoothing).  Beyond a=40 robust HS degrades (the collapsed
-data weight under-constrains occluded regions).  On-chip A/B at the
-scoreboard config (3L x 50 sweeps, 1080p): 5.23 -> 7.90 ms (191 -> 127
-fps, the same ~1.5x/sweep as DIS) — still 1.8x faster than TV-L1's 69
-fps, with boundary quality between HS and TV-L1 (TV-L1 bar band 1.36
-remains the champion).  Default stays quadratic a=10; recommended robust
-point: penalty="charbonnier", alpha=40.
+data weight under-constrains occluded regions).  Boundary quality sits
+between HS and TV-L1 (TV-L1 bar band 1.36 remains the champion); its cost
+on the GPU is not measured yet.  Default stays quadratic a=10;
+recommended robust point: penalty="charbonnier", alpha=40.
 
 Run: python docs/studies/charbonnier_study.py      (CPU, ~5 min)
 """
@@ -75,9 +72,6 @@ sys.path.insert(
 
 import numpy as np
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -230,4 +224,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    from cuda_optical_flow_2_tpu.utils.profiling import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -35,9 +35,6 @@ import dataclasses
 
 import numpy as np
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -103,6 +100,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    from cuda_optical_flow_2_tpu.utils.profiling import enable_compile_cache
+
+    enable_compile_cache()
     import os
     import sys
 

@@ -31,9 +31,6 @@ from __future__ import annotations
 
 import numpy as np
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -101,7 +98,7 @@ def run_hs(prev, nxt):
 
     return np.asarray(pyramidal_hs(
         jnp.asarray(prev, jnp.float32), jnp.asarray(nxt, jnp.float32),
-        HSConfig(levels=3, iterations=60, use_pallas=False)))
+        HSConfig(levels=3, iterations=60)))
 
 
 def run_fb(prev, nxt):
@@ -109,7 +106,7 @@ def run_fb(prev, nxt):
 
     cfg = fb.FBConfig(
         levels=3, iterations=3, poly_n=7, poly_sigma=1.5, winsize=15,
-        use_pallas=False, warp_planes="coeff", max_displacement=8,
+        warp_planes="coeff", max_displacement=8,
     )
     return np.asarray(fb.pyramidal_farneback(
         jnp.asarray(prev, jnp.float32), jnp.asarray(nxt, jnp.float32), cfg))
@@ -120,7 +117,7 @@ def run_tvl1(prev, nxt):
 
     return np.asarray(pyramidal_tvl1(
         jnp.asarray(prev, jnp.float32), jnp.asarray(nxt, jnp.float32),
-        TVL1Config(levels=3, use_pallas=False)))
+        TVL1Config(levels=3)))
 
 
 def dis_cfg():
@@ -290,4 +287,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from cuda_optical_flow_2_tpu.utils.profiling import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -27,8 +27,7 @@ Findings (CPU, study cases from opencv_parity.py):
 
 4. Fix: any window weighting with a (near-)nonnegative transfer:
    * "tri"   = trapezoid (two iterated box passes, radii r//2 and r-r//2):
-               min transfer -0.01, near-box cost on TPU (still O(log r)
-               run-doubling per pass).
+               min transfer -0.01.
    * "gauss" = truncated Gaussian, sigma = window/6: min transfer -0.002.
    Both make iterating convergent and cut the anchor cases ~5-13x:
 
@@ -56,9 +55,6 @@ from __future__ import annotations
 
 import numpy as np
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -121,6 +117,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    from cuda_optical_flow_2_tpu.utils.profiling import enable_compile_cache
+
+    enable_compile_cache()
     import sys
     import os
 

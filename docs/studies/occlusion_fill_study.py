@@ -48,9 +48,6 @@ sys.path.insert(
 
 import numpy as np
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -87,7 +84,7 @@ def make_cases():
 def main() -> None:
     interior = np.zeros((H, W), bool)
     interior[MARGIN:-MARGIN, MARGIN:-MARGIN] = True
-    cfg = tvl1.TVL1Config(levels=4, use_pallas=False, max_displacement=8)
+    cfg = tvl1.TVL1Config(levels=4, max_displacement=8)
 
     def run(p, n):
         return tvl1.pyramidal_tvl1(
@@ -125,4 +122,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    from cuda_optical_flow_2_tpu.utils.profiling import enable_compile_cache
+
+    enable_compile_cache()
     main()

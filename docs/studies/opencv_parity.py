@@ -1,7 +1,7 @@
 """External accuracy anchor: cross-validate against OpenCV (CPU study).
 
 Every accuracy claim in docs/PERF.md before round 3 was self-referential
-(oracle twins + XLA-vs-Pallas cross-checks on builder-generated synthetics).
+(oracle twins + kernel-vs-XLA cross-checks on synthetic pairs).
 This study anchors four model families plus the corner seeder against an
 independent implementation — OpenCV's `calcOpticalFlowFarneback`,
 `DISOpticalFlow`, `calcOpticalFlowPyrLK` and `goodFeaturesToTrack` — on
@@ -20,9 +20,6 @@ from __future__ import annotations
 
 import numpy as np
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 import cv2  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -99,7 +96,7 @@ def run_fb(prev, nxt, warp_planes: str):
 
     cfg = fb.FBConfig(
         levels=3, iterations=3, poly_n=7, poly_sigma=1.5, winsize=15,
-        use_pallas=False, warp_planes=warp_planes, max_displacement=8,
+        warp_planes=warp_planes, max_displacement=8,
     )
     return np.asarray(
         fb.pyramidal_farneback(
@@ -208,11 +205,11 @@ def main() -> None:
 
         hs = np.asarray(pyramidal_hs(
             jnp.asarray(prev, jnp.float32), jnp.asarray(nxt, jnp.float32),
-            HSConfig(levels=3, iterations=60, use_pallas=False),
+            HSConfig(levels=3, iterations=60),
         ))
         tv = np.asarray(pyramidal_tvl1(
             jnp.asarray(prev, jnp.float32), jnp.asarray(nxt, jnp.float32),
-            TVL1Config(levels=3, use_pallas=False),
+            TVL1Config(levels=3),
         ))
         for label, f in (("HS", hs), ("TVL1", tv)):
             print(
@@ -296,4 +293,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    from cuda_optical_flow_2_tpu.utils.profiling import enable_compile_cache
+
+    enable_compile_cache()
     main()

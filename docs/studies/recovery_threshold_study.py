@@ -48,9 +48,6 @@ sys.path.insert(
 
 import numpy as np
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -173,4 +170,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    from cuda_optical_flow_2_tpu.utils.profiling import enable_compile_cache
+
+    enable_compile_cache()
     main()

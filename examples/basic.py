@@ -1,6 +1,6 @@
 """Minimal example: dense flow for one frame pair, written as a color PNG.
 
-Run: python examples/basic.py  (CPU or TPU)
+Run: python examples/basic.py  (CPU or GPU)
 """
 import numpy as np
 

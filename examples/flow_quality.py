@@ -1,6 +1,6 @@
 """Flow with quality signals: Farnebäck flow + occlusion + confidence masks.
 
-Run: python examples/flow_quality.py  (CPU or TPU)
+Run: python examples/flow_quality.py  (CPU or GPU)
 """
 import numpy as np
 

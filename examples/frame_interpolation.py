@@ -7,7 +7,7 @@ fall back to the better-exposed side.  Everything jits into ONE device
 program: two pyramidal flow estimates, two warps, the occlusion test and the
 blend.
 
-Run: python examples/frame_interpolation.py  (CPU or TPU)
+Run: python examples/frame_interpolation.py  (CPU or GPU)
 """
 import numpy as np
 

@@ -1,13 +1,13 @@
 """Differentiable alignment: fit a global affine motion by gradient descent.
 
-A TPU-native capability the CUDA reference cannot offer: the whole op
+A capability the CUDA reference cannot offer: the whole op
 library is pure and differentiable, so model-based alignment is just
 jax.grad + optax over the photometric error of the differentiable backward
 warp (ops/warp.py) — no solver code.  The dense pyramidal flow seeds the
 optimizer (its median translation starts the affine fit inside the warp's
 basin of convergence), the gradient steps then refine to sub-pixel.
 
-Run: python examples/gradient_alignment.py  (CPU or TPU)
+Run: python examples/gradient_alignment.py  (CPU or GPU)
 """
 import numpy as np
 

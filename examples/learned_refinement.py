@@ -3,7 +3,7 @@
 The modern production pattern is classic-coarse + learned-residual: a cheap
 dense flow (here pyramidal LK) plus a small network that corrects its
 systematic errors.  Because every op in this framework is pure JAX, the
-learned component just slots in — flax convolutions (MXU-friendly) over a
+learned component just slots in — flax convolutions over a
 feature stack of [prev, warped next, coarse flow], optax adam, one jitted
 train step.  The CUDA reference has no analogue of any of this.
 
@@ -12,7 +12,7 @@ draw a random texture ``nxt`` and a random smooth flow ``d``; under the
 framework's convention prev(x) = nxt(x + d), so ``prev = warp(nxt, d)``
 gives a pair whose true flow IS ``d``.
 
-Run: python examples/learned_refinement.py  (CPU or TPU)
+Run: python examples/learned_refinement.py  (CPU or GPU)
 """
 import functools
 

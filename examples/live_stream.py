@@ -6,7 +6,7 @@ stopped; memory stays bounded by the prefetch ring and the carried state
 (one pyramid + one flow), and a glitched frame would be skipped with the
 warm state re-seeded.
 
-Run: python examples/live_stream.py  (CPU or TPU; Ctrl-C to stop early)
+Run: python examples/live_stream.py  (CPU or GPU; Ctrl-C to stop early)
 """
 
 import time

@@ -12,7 +12,7 @@ invalid seed is dropped and the pair re-solves over a deeper pyramid.
 This example streams two scenes moving in opposite directions with a hard
 cut in the middle, printing the per-pair flow error for both policies.
 
-Run: python examples/scene_cut_recovery.py   (CPU or TPU)
+Run: python examples/scene_cut_recovery.py   (CPU or GPU)
 """
 
 import numpy as np

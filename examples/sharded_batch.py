@@ -3,7 +3,7 @@
 Run on CPU with a virtual mesh:
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/sharded_batch.py
-(on a TPU pod slice it shards over the real chips unchanged).
+(on a multi-GPU host it shards over the real cards unchanged).
 """
 import numpy as np
 
@@ -21,8 +21,7 @@ def main():
     nxt = np.stack(frames[1:]).astype(np.float32)
 
     mesh = parallel.make_mesh()
-    config = of.LKConfig(levels=3, window=11, temporal_kernel="gauss3",
-                         use_pallas=jax.default_backend() == "tpu")
+    config = of.LKConfig(levels=3, window=11, temporal_kernel="gauss3")
     flow = parallel.sharded_pyramidal_lk(
         jax.numpy.asarray(prev[: 2 * n]), jax.numpy.asarray(nxt[: 2 * n]),
         config, mesh,

@@ -37,8 +37,7 @@ def main():
     fb_flow = parallel.spatial_pyramidal_fb(
         jnp.asarray(frames[0].astype(np.float32)),
         jnp.asarray(frames[1].astype(np.float32)),
-        FBConfig(levels=2, iterations=2, winsize=11, use_pallas=False,
-                 max_displacement=8),
+        FBConfig(levels=2, iterations=2, winsize=11, max_displacement=8),
         mesh,
     )
     print("farneback median:",

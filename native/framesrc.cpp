@@ -1,7 +1,7 @@
-// Native frame-ingestion runtime for the TPU optical-flow framework.
+// Native frame-ingestion runtime for the optical-flow framework.
 //
-// The reference implements its whole runtime in C++/CUDA; on the TPU side the
-// compute path is JAX/XLA, but the host-side frame pipeline (decode, grayscale
+// The reference implements its whole runtime in C++/CUDA; here the compute
+// path is JAX/XLA on the GPU, but the host-side frame pipeline (decode, grayscale
 // conversion, synthetic generation) stays native for throughput: feeding a
 // >60 fps 1080p stream means converting ~190 MB/s of interleaved RGB on the
 // host, which NumPy does with several temporaries and one core.  These
@@ -257,7 +257,7 @@ int of2_ppm_read(const char* path, uint8_t* dst, int64_t n) {
 // it (main.cu:222-275) — decode latency lands on the compute path.  Here a
 // worker thread decodes/generates/grayscales frames ahead of the consumer
 // into a bounded ring buffer of planar float32 frames, so host-side frame
-// prep overlaps TPU compute.  C ABI for ctypes; one worker per stream is
+// prep overlaps device compute.  C ABI for ctypes; one worker per stream is
 // plenty (the per-frame ops are themselves row-parallel).
 // ---------------------------------------------------------------------------
 

@@ -62,7 +62,7 @@ def test_fill_occluded_flow_improves_unmatched_epe():
         h, w, bg_flow=(-2.0, 1.0),
         layers=[Layer("disk", (96.0, 128.0), 45.0, (3.0, 1.0))], seed=3,
     )
-    cfg = tvl1.TVL1Config(levels=4, use_pallas=False, max_displacement=8)
+    cfg = tvl1.TVL1Config(levels=4, max_displacement=8)
     fw = tvl1.pyramidal_tvl1(
         jnp.asarray(sc.prev, jnp.float32), jnp.asarray(sc.nxt, jnp.float32),
         cfg,

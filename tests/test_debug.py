@@ -18,8 +18,7 @@ def _by_key(report):
 
 def test_lk_stage_report_backends_agree():
     prev, nxt = _pair(128, 64)
-    # iterations=1: the stage runners take one canonical flow_in; iteration
-    # count only multiplies the interpret-mode cost of the level/flow rows.
+    # iterations=1: the stage runners take one canonical flow_in.
     # window_weights="box": the oracle backend is the reference's flat srm
     # twin, which only exists for the box window (weighted configs skip the
     # oracle window_sums row — pinned below).
@@ -36,9 +35,10 @@ def test_lk_stage_report_backends_agree():
     for (lvl, stage, backend), r in rep.items():
         if backend == "banded":
             assert r.max_abs == 0.0, r
-    # the fused Pallas residual agrees to float noise
+    # the fused residual kernel (interpret mode here) agrees to float noise;
+    # the whole-level row takes the kernel only on the GPU
     assert rep[(0, "residual", "pallas")].max_abs < 1e-5
-    assert rep[(0, "level", "pallas")].max_abs < 1e-4
+    assert (0, "level", "pallas") not in rep
     # oracle float twins: gradients/solve tight, window sums are the
     # accumulation-order-sensitive stage (documented)
     assert rep[(0, "gradients", "oracle")].max_abs < 1e-4
@@ -79,41 +79,6 @@ def test_fb_tolerance_decomposes_per_stage():
     assert len(rep) >= 9  # 3 stages x 3 levels
     for r in rep:
         assert r.max_abs <= 2e-5, r
-
-
-def test_hs_and_tvl1_sweep_stages():
-    from cuda_optical_flow_2_tpu.models.horn_schunck import HSConfig
-    from cuda_optical_flow_2_tpu.models.tvl1 import TVL1Config
-
-    prev, nxt = _pair(128, 64)
-    rep = stage_report(
-        prev, nxt, HSConfig(levels=2, iterations=12, c_max=2),
-        backends=("pallas",),
-    )
-    assert any(r.stage == "sweeps" for r in rep)
-    for r in rep:
-        assert r.max_abs < 1e-5, r
-    # Per-stage (same-input) comparisons are float-tight.  The end-to-end
-    # 'flow' stage is NOT a sound max-norm invariant for TV-L1: the select
-    # warp's c_max row-choice rule is violated at the staircase
-    # discontinuities TV regularization produces (measured max
-    # |dfloor(v)| = 8 across floor(u) columns on this very sequence), so a
-    # few dozen pixels warp differently than the XLA gather and the
-    # difference recirculates over warps.  EPE is unaffected (both paths
-    # 0.0055 without / 0.0004 with median filtering).  The standard
-    # median-filtered pipeline (OpenCV DualTVL1's medianBlur) tames the
-    # staircase; the flow stage gets a mean-norm bound.
-    rep = stage_report(
-        prev, nxt,
-        TVL1Config(levels=2, iterations=8, median_filtering=5),
-        backends=("pallas",),
-    )
-    assert any(r.stage == "sweeps" for r in rep)
-    for r in rep:
-        if r.stage == "flow":
-            assert r.mean_abs < 2e-3, r
-        else:
-            assert r.max_abs < 1e-5, r
 
 
 def test_cli_diff_smoke(capsys):

@@ -1,10 +1,8 @@
 """End-to-end differentiability of the XLA pipelines.
 
-A TPU-native capability the CUDA reference cannot offer: every model family
-is a pure jittable function, so jax.grad flows through the whole
-coarse-to-fine pipeline (use_pallas=False path — the Pallas kernels carry
-no AD rules; dispatch falls back automatically under grad-of-jit only when
-configured off).  This makes the flow usable as a differentiable module
+A capability the CUDA reference cannot offer: every model family is a pure
+jittable function, so jax.grad flows through the whole coarse-to-fine
+pipeline (the XLA path; the fused GPU kernel carries no AD rule).  This makes the flow usable as a differentiable module
 (e.g. self-supervised photometric training, or tuning the prefilter by
 gradient descent)."""
 
@@ -32,9 +30,9 @@ def test_all_families_differentiable():
     p, n = _pair()
     for cfg in (
         of.LKConfig(levels=2, window=9, iterations=2, use_pallas=False),
-        hs.HSConfig(levels=2, iterations=10, use_pallas=False),
-        fb.FBConfig(levels=2, iterations=2, use_pallas=False),
-        tvl1.TVL1Config(levels=2, warps=1, iterations=5, use_pallas=False),
+        hs.HSConfig(levels=2, iterations=10),
+        fb.FBConfig(levels=2, iterations=2),
+        tvl1.TVL1Config(levels=2, warps=1, iterations=5),
     ):
         g = jax.grad(
             lambda x, c=cfg: jnp.mean(pyramidal_flow(p, x, c)[..., 0])

@@ -99,42 +99,30 @@ def test_centered_sums_equal_explicit_covariance():
                                    rtol=1e-4, atol=1e-4)
 
 
-def test_centered_residual_kernel_matches_xla(monkeypatch):
-    """Fused centered LK residual (interpret) == the XLA covariance path."""
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
+@pytest.mark.parametrize("weights", ["box", "tri", "gauss"])
+def test_centered_residual_kernel_matches_xla(weights):
+    """Fused centered LK residual (Triton kernel, interpret mode) == the XLA
+    covariance path, per window weighting."""
     from cuda_optical_flow_2_tpu.kernels import lk_fused
 
     p, n = _pair(67, 93, 1.0, 0.5)  # odd sizes on purpose
-    cfg = dis.DISConfig(levels=1, use_pallas=False)
+    cfg = dis.DISConfig(levels=1, window_weights=weights, use_pallas=False)
     want = np.asarray(dis._dis_residual_xla(p, n, cfg))
     got = np.asarray(lk_fused.lk_residual(
         p, n, dis._lk_like(cfg), interpret=True, centered=True))
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
-def test_refine_offset_kernel_matches_xla(monkeypatch):
-    """hs_relax with the it_offset plane (interpret) == the XLA sweep."""
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
-    p, n = _pair(67, 93, 1.0, 0.5)
-    flow0 = jnp.full((67, 93, 2), 0.5, jnp.float32)
-    cfg = dis.DISConfig(levels=1, refine_iterations=6)
-    fx = dis._refine(p, n, flow0, dataclasses.replace(cfg, use_pallas=False))
-    fk = dis._refine(p, n, flow0, dataclasses.replace(cfg, use_pallas=True))
-    np.testing.assert_allclose(np.asarray(fk), np.asarray(fx), atol=1e-5)
-
-
-def test_dis_dispatch_forced_interpret(monkeypatch):
-    """Full pipeline: fused path == XLA path (border rows differ by the
-    select-vs-gather warp semantics, as for the other families)."""
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
+def test_dis_dispatch_forced_interpret(kernel_interpret):
+    """Full pipeline with the search step routed to the Triton kernel
+    (interpret mode) == the XLA path."""
     p, n = _pair(96, 128, 2.0, 1.0)
     cfg = dis.DISConfig(levels=3, use_pallas=False)
     fx = np.asarray(dis.pyramidal_dis(p, n, cfg))
     fk = np.asarray(dis.pyramidal_dis(
         p, n, dataclasses.replace(cfg, use_pallas=True)))
-    np.testing.assert_allclose(fk[16:-16, 16:-16], fx[16:-16, 16:-16],
-                               atol=1e-4)
-    assert np.abs(fk - fx).max() < 0.05
+    assert kernel_interpret.calls > 0
+    np.testing.assert_allclose(fk, fx, atol=1e-4)
 
 
 def test_finest_level_upsamples():
@@ -206,63 +194,13 @@ def test_dis_realtime_preset():
     m = np.median(np.asarray(f)[24:-24, 24:-24], axis=(0, 1))
     assert abs(m[0] - 2) < 0.3 and abs(m[1] - 1) < 0.3, m
 
-def test_dis_fused_half_upsample_matches(monkeypatch):
-    """DIS's coarse-to-fine consumes the coarser flow directly in the fused
-    kernel (in-kernel 2x upsample) and matches the XLA-upsample route."""
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
-    from cuda_optical_flow_2_tpu.models import dis
-    from cuda_optical_flow_2_tpu.models import lucas_kanade as lk
-    from cuda_optical_flow_2_tpu.utils import io
-
-    fr = io.synthetic_sequence(2, 128, 448, velocity=(2.0, 1.0))
-    p, n = (jnp.asarray(f, jnp.float32) for f in fr)
-    cfg = dis.DISConfig(
-        levels=2, iterations=2, refine_iterations=2, max_displacement=8,
-        fused_half_upsample=True,
-    )
-    got = np.asarray(dis.pyramidal_dis(p, n, cfg))
-    monkeypatch.setattr(lk, "_fused_half_upsample", lambda *a: False)
-    want = np.asarray(dis.pyramidal_dis(p, n, cfg))
-    np.testing.assert_allclose(got, want, atol=2e-5)
-
-
-def test_charbonnier_relax_kernel_matches_xla():
-    """Robust (lagged-diffusivity Charbonnier) hs_relax (interpret kernel)
-    == models.dis._robust_relax_xla, including the chunk-edge sweep counts
-    (16 = exactly one MAX_SWEEPS chunk, where the weights' extra halo row
-    matters; 33 = two chunks + remainder)."""
-    from cuda_optical_flow_2_tpu.constants import MASKS
-    from cuda_optical_flow_2_tpu.kernels import hs_sweep
-    from cuda_optical_flow_2_tpu.ops.conv import stencil2d
-    from cuda_optical_flow_2_tpu.ops.gradients import SOBEL_GAIN
-
-    rng = np.random.default_rng(0)
-    h, w = 64, 96
-    prev = jnp.asarray(rng.random((h, w)).astype(np.float32) * 255)
-    nxt = jnp.asarray(np.roll(np.asarray(prev), 2, axis=1))
-    flow0 = jnp.asarray(rng.normal(0, 2, (h, w, 2)).astype(np.float32))
-    off = jnp.asarray(rng.normal(0, 1, (h, w)).astype(np.float32))
-    s = 1.0 / SOBEL_GAIN
-    ix = stencil2d(prev, MASKS["sobel_x"] * s)
-    iy = stencil2d(prev, MASKS["sobel_y"] * s)
-    tm = MASKS["dt3"] / MASKS["dt3"].sum()
-    itg = stencil2d(nxt - prev, tm) + off
-    for iters in (5, 16, 33):
-        got = np.asarray(hs_sweep.hs_relax(
-            prev, nxt, flow0, iterations=iters, alpha=20.0,
-            temporal_kernel="dt3", interpret=True, it_offset=off,
-            robust=(3.0, 0.1)))
-        want = np.asarray(dis._robust_relax_xla(
-            flow0, ix, iy, itg, iters, 20.0, (3.0, 0.1)))
-        np.testing.assert_allclose(got, want, atol=1e-5)
-
 
 def test_charbonnier_eps_inf_reduces_to_quadratic_interior():
     """eps_data, eps_smooth -> inf turns both Charbonnier weights into 1,
     recovering the quadratic update exactly in the interior.  (The border
     ring differs by design: robust mode's S normalization with ws=0
     outside is a Neumann boundary instead of the quadratic zero-pad
-    Dirichlet drag — kernels/hs_sweep.py.)"""
+    Dirichlet drag.)"""
     p, n = _pair(96, 128, 2.0, 1.0)
     base = dict(levels=2, iterations=2, refine_iterations=5,
                 use_pallas=False)

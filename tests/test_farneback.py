@@ -118,129 +118,13 @@ def test_batched_and_validation():
         fb.FBConfig(poly_sigma=0.0)
 
 
-def test_win_solve_kernel_matches_xla(rng):
-    """Fused window+solve kernel (interpret mode) vs the XLA fallback."""
-    from cuda_optical_flow_2_tpu.kernels import win_solve
-
-    prods = tuple(
-        jnp.asarray(rng.standard_normal((45, 70)).astype(np.float32))
-        for _ in range(5)
-    )
-    # make G SPD-ish so the solve is well-conditioned
-    prods = (jnp.abs(prods[0]) + 1.0, prods[1], jnp.abs(prods[2]) + 1.0,
-             prods[3], prods[4])
-    cfg = fb.FBConfig(winsize=9, use_pallas=False)
-    want = np.asarray(fb._window_solve(prods, cfg))
-    got = np.asarray(
-        win_solve.window_solve(*prods, window=9, det_eps=cfg.det_eps, interpret=True)
-    )
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
-
-
-def test_win_solve_kernel_batched(rng):
-    from cuda_optical_flow_2_tpu.kernels import win_solve
-
-    prods = tuple(
-        jnp.asarray(rng.standard_normal((2, 24, 40)).astype(np.float32))
-        for _ in range(5)
-    )
-    got = np.asarray(
-        win_solve.window_solve(*prods, window=5, det_eps=1e-6, interpret=True)
-    )
-    for b in range(2):
-        single = np.asarray(
-            win_solve.window_solve(
-                *(p[b] for p in prods), window=5, det_eps=1e-6, interpret=True
-            )
-        )
-        np.testing.assert_allclose(got[b], single, atol=1e-6)
-
-
-def test_fb_dispatch_forced_interpret(monkeypatch):
-    """use_pallas=True routes the window+solve through the kernel on CPU."""
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
-    p, n = _pair(48, 64, 0.5, 0.3)
-    cfg = fb.FBConfig(levels=2, iterations=2)
-    want = np.asarray(
-        fb.pyramidal_farneback(p, n, fb.dataclasses.replace(cfg, use_pallas=False))
-    )
-    got = np.asarray(fb.pyramidal_farneback(p, n, cfg))
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-
-
 def test_fb_image_formulation_matches_accuracy():
     """warp_planes='image' and 'coeff' agree to sub-pixel on translation."""
     p, n = _pair(64, 96, 2.0, 1.0)
     fi = np.asarray(fb.pyramidal_farneback(
-        p, n, fb.FBConfig(levels=2, iterations=2, use_pallas=False,
-                          warp_planes="image")))
+        p, n, fb.FBConfig(levels=2, iterations=2, warp_planes="image")))
     fc = np.asarray(fb.pyramidal_farneback(
-        p, n, fb.FBConfig(levels=2, iterations=2, use_pallas=False,
-                          warp_planes="coeff")))
+        p, n, fb.FBConfig(levels=2, iterations=2, warp_planes="coeff")))
     c = (slice(20, -20), slice(20, -20))
     assert np.abs(fi[c] - fc[c]).mean() < 0.05
 
-
-def test_fb_step_fused_matches_xla_image(monkeypatch):
-    """The fused kernel (interpret) == the XLA image-warp path, float-tight."""
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
-    p, n = _pair(96, 128, 2.0, 1.0)
-    cfg_x = fb.FBConfig(levels=2, iterations=2, use_pallas=False)
-    cfg_k = fb.FBConfig(levels=2, iterations=2, use_pallas=True)
-    fx = np.asarray(fb.pyramidal_farneback(p, n, cfg_x))
-    fk = np.asarray(fb.pyramidal_farneback(p, n, cfg_k))
-    np.testing.assert_allclose(fk, fx, atol=1e-4)
-
-
-def test_fb_step_fused_first_iteration(monkeypatch):
-    """first=True skips the warp: fused == XLA with iterations=1, no prior."""
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
-    from cuda_optical_flow_2_tpu.kernels import fb_step_fused
-    from cuda_optical_flow_2_tpu.ops.poly_exp import poly_expansion
-    import jax.numpy as jnp
-
-    p, n = _pair(48, 64, 1.0, 0.5)
-    cfg = fb.FBConfig(levels=1, iterations=1)
-    exp1 = poly_expansion(p, cfg.poly_n, cfg.poly_sigma)
-    want = np.asarray(fb.fb_level_image(n, exp1, None, fb.dataclasses.replace(cfg, use_pallas=False)))
-    got = np.asarray(fb_step_fused.fb_level_step(
-        n, exp1, jnp.zeros(n.shape + (2,), jnp.float32), cfg,
-        first=True, interpret=True))
-    np.testing.assert_allclose(got, want, atol=1e-5)
-
-
-def test_poly_exp_kernel_matches_xla(rng):
-    from cuda_optical_flow_2_tpu.kernels import poly_exp_fused
-    from cuda_optical_flow_2_tpu.ops.poly_exp import poly_expansion
-
-    x = jnp.asarray(rng.random((37, 61)).astype(np.float32) * 255)
-    want = poly_expansion(x, 7, 1.5)
-    got = poly_exp_fused.poly_expansion_kernel(x, 7, 1.5, interpret=True)
-    for a, b in zip(got, want):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=2e-5, atol=2e-4
-        )
-
-
-def test_fb_expand_dispatch_forced_interpret(monkeypatch):
-    """use_pallas routes expansion through the kernel; pipeline unchanged."""
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
-    p, n = _pair(64, 96, 1.0, 0.5)
-    cfg = fb.FBConfig(levels=2, iterations=2)
-    want = np.asarray(fb.pyramidal_farneback(
-        p, n, fb.dataclasses.replace(cfg, use_pallas=False)))
-    got = np.asarray(fb.pyramidal_farneback(p, n, cfg))
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-
-
-def test_fb_step_fused_odd_sizes(monkeypatch):
-    """Pyramid levels produce odd sizes (1080p level 4 = 67x120): fused step
-    must pad/crop exactly at non-aligned shapes."""
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
-    for h, w in ((67, 120), (35, 53)):
-        p, n = _pair(h, w, 1.0, 0.5)
-        cfg_x = fb.FBConfig(levels=1, iterations=2, winsize=9, use_pallas=False)
-        cfg_k = fb.FBConfig(levels=1, iterations=2, winsize=9, use_pallas=True)
-        fx = np.asarray(fb.pyramidal_farneback(p, n, cfg_x))
-        fk = np.asarray(fb.pyramidal_farneback(p, n, cfg_k))
-        np.testing.assert_allclose(fk, fx, atol=1e-4)

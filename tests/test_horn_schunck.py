@@ -48,92 +48,6 @@ def test_fills_textureless_regions():
     assert abs(np.median(hole[..., 0]) - 1.0) < 0.3, np.median(hole[..., 0])
 
 
-def _hs_xla(p, n, flow_init, cfg):
-    return hs.hs_level(
-        p, n, flow_init, hs.dataclasses.replace(cfg, use_pallas=False)
-    )
-
-
-@pytest.mark.parametrize(
-    "shape,iters,alpha",
-    [
-        ((64, 80), 16, 8.0),      # exactly one fused block
-        ((61, 77), 21, 10.0),     # scan block + remainder, odd shape
-        ((80, 96), 50, 5.0),      # multiple scan blocks
-    ],
-)
-def test_pallas_relax_matches_xla(shape, iters, alpha):
-    from cuda_optical_flow_2_tpu.kernels import hs_sweep
-
-    p, n = _pair(*shape, 0.8, -0.5)
-    cfg = hs.HSConfig(alpha=alpha, iterations=iters, levels=1)
-    want = np.asarray(_hs_xla(p, n, None, cfg))
-    got = np.asarray(
-        hs_sweep.hs_relax(
-            p, n, None,
-            iterations=iters, alpha=alpha,
-            temporal_kernel=cfg.temporal_kernel, interpret=True,
-        )
-    )
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-
-
-def test_pallas_relax_multiband(monkeypatch):
-    """Force small row bands so the K-row halo / trapezoid logic is exercised."""
-    from cuda_optical_flow_2_tpu.kernels import hs_sweep
-
-    monkeypatch.setattr(hs_sweep, "_pick_tile_h", lambda wp, halo_y, h: 16)
-    p, n = _pair(90, 70, 1.2, 0.6)
-    cfg = hs.HSConfig(alpha=8.0, iterations=40, levels=1)
-    want = np.asarray(_hs_xla(p, n, None, cfg))
-    got = np.asarray(
-        hs_sweep.hs_relax(
-            p, n, None,
-            iterations=40, alpha=8.0,
-            temporal_kernel=cfg.temporal_kernel, interpret=True,
-        )
-    )
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-
-
-def test_pallas_relax_flow_init_and_batch():
-    from cuda_optical_flow_2_tpu.kernels import hs_sweep
-
-    p, n = _pair(48, 64, 0.5, 0.3)
-    cfg = hs.HSConfig(alpha=8.0, iterations=12, levels=1)
-    f0 = jnp.full(p.shape + (2,), 0.25, jnp.float32)
-    want = np.asarray(_hs_xla(p, n, f0, cfg))
-    got = np.asarray(
-        hs_sweep.hs_relax(
-            p, n, f0,
-            iterations=12, alpha=8.0,
-            temporal_kernel=cfg.temporal_kernel, interpret=True,
-        )
-    )
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-
-    pb, nb = jnp.stack([p, n]), jnp.stack([n, p])
-    wantb = np.asarray(_hs_xla(pb, nb, None, cfg))
-    gotb = np.asarray(
-        hs_sweep.hs_relax(
-            pb, nb, None,
-            iterations=12, alpha=8.0,
-            temporal_kernel=cfg.temporal_kernel, interpret=True,
-        )
-    )
-    np.testing.assert_allclose(gotb, wantb, rtol=1e-4, atol=1e-4)
-
-
-def test_dispatch_forced_interpret(monkeypatch):
-    """use_pallas=True routes hs_level through the kernel under the env hook."""
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
-    p, n = _pair(48, 64, 0.5, 0.3)
-    cfg = hs.HSConfig(alpha=8.0, iterations=10, levels=1)
-    want = np.asarray(_hs_xla(p, n, None, cfg))
-    got = np.asarray(hs.hs_level(p, n, None, cfg))
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-
-
 def test_batched_and_config_validation():
     p, n = _pair(64, 64, 1.0, 0.0)
     pb = jnp.stack([p, p])
@@ -143,25 +57,6 @@ def test_batched_and_config_validation():
     assert flow.shape == (2, 64, 64, 2)
     with pytest.raises(ValueError):
         hs.HSConfig(alpha=0.0)
-
-
-def test_hs_charbonnier_kernel_matches_xla(monkeypatch):
-    """Robust HS (HSConfig.penalty='charbonnier'): interpret-mode kernel ==
-    the chunk-matched XLA twin through the full pyramidal pipeline."""
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
-    p, n = _pair(96, 128, 2.0, 1.0)
-    cfg = hs.HSConfig(
-        alpha=20.0, iterations=20, levels=2, penalty="charbonnier",
-        max_displacement=8, use_pallas=False,
-    )
-    fx = np.asarray(hs.pyramidal_hs(p, n, cfg))
-    import dataclasses
-
-    fk = np.asarray(hs.pyramidal_hs(
-        p, n, dataclasses.replace(cfg, use_pallas=True)))
-    np.testing.assert_allclose(
-        fk[16:-16, 16:-16], fx[16:-16, 16:-16], atol=1e-4
-    )
 
 
 def test_hs_charbonnier_beats_quadratic_frontier_on_boundaries():

@@ -68,13 +68,13 @@ def _run(family, prev, nxt):
         )
 
         return np.asarray(pyramidal_hs(
-            prev, nxt, HSConfig(levels=3, iterations=60, use_pallas=False)))
+            prev, nxt, HSConfig(levels=3, iterations=60)))
     if family == "fb":
         from cuda_optical_flow_2_tpu.models import farneback as fb
 
         cfg = fb.FBConfig(
             levels=3, iterations=3, poly_n=7, poly_sigma=1.5, winsize=15,
-            use_pallas=False, warp_planes="coeff", max_displacement=8,
+            warp_planes="coeff", max_displacement=8,
         )
         return np.asarray(fb.pyramidal_farneback(prev, nxt, cfg))
     if family == "tvl1":
@@ -83,7 +83,7 @@ def _run(family, prev, nxt):
         )
 
         return np.asarray(pyramidal_tvl1(
-            prev, nxt, TVL1Config(levels=3, use_pallas=False)))
+            prev, nxt, TVL1Config(levels=3)))
     from cuda_optical_flow_2_tpu.models import dis
 
     return np.asarray(dis.pyramidal_dis(

@@ -8,9 +8,14 @@ from cuda_optical_flow_2_tpu.utils import io as uio
 from cuda_optical_flow_2_tpu.utils import native
 
 
-needs_native = pytest.mark.skipif(
-    not (native.available() or native.build()), reason="native toolchain missing"
-)
+@pytest.fixture
+def native_lib():
+    """The built native library (built at first use, under the build lock)."""
+    if not native.available():
+        pytest.skip("native toolchain missing")
+
+
+needs_native = pytest.mark.usefixtures("native_lib")
 
 
 @needs_native

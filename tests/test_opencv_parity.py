@@ -90,7 +90,7 @@ def test_farneback_vs_opencv(cases, case):
     prev, nxt, truth = cases[case]
     cfg = fb.FBConfig(
         levels=3, iterations=3, poly_n=7, poly_sigma=1.5, winsize=15,
-        use_pallas=False, warp_planes="coeff", max_displacement=8,
+        warp_planes="coeff", max_displacement=8,
     )
     ours = np.asarray(
         fb.pyramidal_farneback(
@@ -116,7 +116,7 @@ def test_farneback_image_formulation_matches_too(cases):
     prev, nxt, truth = cases["rotate_smooth"]
     cfg = fb.FBConfig(
         levels=3, iterations=3, poly_n=7, poly_sigma=1.5, winsize=15,
-        use_pallas=False, warp_planes="image", max_displacement=8,
+        warp_planes="image", max_displacement=8,
     )
     ours = np.asarray(
         fb.pyramidal_farneback(
@@ -264,11 +264,11 @@ def test_hs_and_tvl1_on_anchored_harness(cases, case):
     prev, nxt, truth = cases[case]
     p, n = jnp.asarray(prev, jnp.float32), jnp.asarray(nxt, jnp.float32)
     tv = np.asarray(
-        pyramidal_tvl1(p, n, TVL1Config(levels=3, use_pallas=False))
+        pyramidal_tvl1(p, n, TVL1Config(levels=3))
     )
     assert _epe(tv, truth) < 0.05
     hs = np.asarray(
-        pyramidal_hs(p, n, HSConfig(levels=3, iterations=60, use_pallas=False))
+        pyramidal_hs(p, n, HSConfig(levels=3, iterations=60))
     )
     assert _epe(hs, truth) < 0.3
 

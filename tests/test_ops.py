@@ -233,3 +233,68 @@ def test_flo_roundtrip(tmp_path, rng):
 
     with pytest.raises(ValueError):
         io.write_flo(p, flow[..., :1])
+
+
+def _banded_pyr_down(x: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """Blur + 2x subsample as banded matrix products, D_h @ x @ D_w^T with
+    D[i, 2i + j - r] = k[j] (zero-clipped at the border): the form the
+    strided stencil replaced."""
+    r = k.size // 2
+
+    def band(n_out):
+        d = np.zeros((n_out, 2 * n_out))
+        for j, c in enumerate(k):
+            for i in range(n_out):
+                if 0 <= 2 * i + j - r < 2 * n_out:
+                    d[i, 2 * i + j - r] = c
+        return d
+
+    oh, ow = x.shape[-2] // 2, x.shape[-1] // 2
+    xb = x[..., : 2 * oh, : 2 * ow].astype(np.float64)
+    return np.einsum("hi,...iw,jw->...hj", band(oh), xb, band(ow))
+
+
+@pytest.mark.parametrize("shape", [(64, 128), (61, 201), (2, 33, 47)])
+def test_pyr_down_matches_banded_matmul(rng, shape):
+    from cuda_optical_flow_2_tpu.constants import BINOMIAL_1D
+
+    x = rng.normal(0, 50, shape).astype(np.float32)
+    got = np.asarray(ops.pyr_down(jnp.asarray(x)))
+    want = _banded_pyr_down(x, np.asarray(BINOMIAL_1D, np.float64))
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def _precisions(jaxpr, found):
+    """(primitive, precision) of every conv/dot in a jaxpr, recursively."""
+    from jax.extend import core
+
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name in ("conv_general_dilated", "dot_general"):
+            found.append((eqn.primitive.name, eqn.params["precision"]))
+        for v in eqn.params.values():
+            for sub in v if isinstance(v, (tuple, list)) else (v,):
+                if isinstance(sub, core.ClosedJaxpr):
+                    _precisions(sub.jaxpr, found)
+                elif isinstance(sub, core.Jaxpr):
+                    _precisions(sub, found)
+    return found
+
+
+@pytest.mark.parametrize("name", ["PAPER_1080P", "REFERENCE_GPU"])
+def test_lk_path_convs_run_at_highest_precision(name):
+    """On the GPU a float32 conv or dot may run in TF32 unless asked for
+    HIGHEST; every one on the LK path (pyramid, prefilter, gradients,
+    window sums, warp, upsample) pins it."""
+    import jax
+    from jax import lax
+
+    import cuda_optical_flow_2_tpu as of
+
+    cfg = getattr(of, name)
+    x = jnp.zeros((96, 128), jnp.float32)
+    jaxpr = jax.make_jaxpr(lambda a, b: of.pyramidal_lk(a, b, cfg))(x, x)
+    found = _precisions(jaxpr.jaxpr, [])
+    assert found, "no conv/dot on the path"
+    hi = lax.Precision.HIGHEST
+    for prim, prec in found:
+        assert prec in (hi, (hi, hi)), (prim, prec)

@@ -210,8 +210,8 @@ def test_sharded_flow_model_generic():
     from cuda_optical_flow_2_tpu.models import dis
 
     for cfg in (
-        hs.HSConfig(levels=2, iterations=20, use_pallas=False),
-        fb.FBConfig(levels=2, iterations=2, use_pallas=False),
+        hs.HSConfig(levels=2, iterations=20),
+        fb.FBConfig(levels=2, iterations=2),
         dis.DISConfig(levels=2, iterations=1, refine_iterations=2,
                       use_pallas=False),
     ):
@@ -228,8 +228,7 @@ def test_spatial_hs_matches_unsharded():
     from cuda_optical_flow_2_tpu.models import horn_schunck as hs
 
     p, n = _smooth_pair(512, 64, dx=2, dy=1)
-    cfg = hs.HSConfig(alpha=8.0, iterations=20, levels=3, use_pallas=False,
-                      max_displacement=16)
+    cfg = hs.HSConfig(alpha=8.0, iterations=20, levels=3, max_displacement=16)
     mesh = parallel.make_mesh(axis_name="space")
     flow = parallel.spatial_pyramidal_hs(p, n, cfg, mesh, sweep_tile=6)
     assert flow.shape == (512, 64, 2)
@@ -244,8 +243,7 @@ def test_spatial_fb_matches_unsharded():
     from cuda_optical_flow_2_tpu.models import farneback as fb
 
     p, n = _smooth_pair(512, 64, dx=2, dy=1)
-    cfg = fb.FBConfig(levels=3, iterations=2, winsize=11, use_pallas=False,
-                      max_displacement=4)
+    cfg = fb.FBConfig(levels=3, iterations=2, winsize=11, max_displacement=4)
     mesh = parallel.make_mesh(axis_name="space")
     flow = parallel.spatial_pyramidal_fb(p, n, cfg, mesh)
     assert flow.shape == (512, 64, 2)
@@ -268,7 +266,7 @@ def test_spatial_hs_single_scale_exact():
     from cuda_optical_flow_2_tpu.models import horn_schunck as hs
 
     p, n = _smooth_pair(256, 48, dx=1, dy=0)
-    cfg = hs.HSConfig(alpha=10.0, iterations=25, levels=1, use_pallas=False)
+    cfg = hs.HSConfig(alpha=10.0, iterations=25, levels=1)
     mesh = parallel.make_mesh(axis_name="space")
     flow = parallel.spatial_pyramidal_hs(p, n, cfg, mesh, sweep_tile=7)
     want = hs.pyramidal_hs(p, n, cfg)
@@ -304,8 +302,7 @@ def test_spatial_tvl1_matches_unsharded():
     # max_displacement=16 keeps the sharded path's always-on budget clamp
     # non-binding (this texture's TV-L1 has outlier pixels up to ~6 px —
     # the one documented semantic difference, as in the LK spatial test)
-    cfg = tvl1.TVL1Config(levels=2, warps=2, iterations=10, use_pallas=False,
-                          max_displacement=16)
+    cfg = tvl1.TVL1Config(levels=2, warps=2, iterations=10, max_displacement=16)
     mesh = parallel.make_mesh(axis_name="space")
     flow = parallel.spatial_pyramidal_tvl1(p, n, cfg, mesh, iter_tile=5)
     assert flow.shape == (512, 64, 2)
@@ -351,24 +348,8 @@ def test_spatial_dis_matches_unsharded():
         assert abs(med[0] - 1) < 0.1 and abs(med[1] - 2) < 0.1, med
 
 
-def test_spatial_dis_pallas_matches_unsharded_pallas(monkeypatch):
-    """Fused-Pallas TP DIS (centered lk_band_step + hs_relax_band with the
-    it_offset plane) == unsharded Pallas DIS, interpret mode on CPU."""
-    from cuda_optical_flow_2_tpu.models import dis
-
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
-    p, n = _smooth_pair(1024, 64, dx=1, dy=2)
-    mesh = parallel.make_mesh(axis_name="space")
-    cfg = dis.DISConfig(levels=3, iterations=2, refine_iterations=5,
-                        window=9, use_pallas=True, max_displacement=8)
-    flow = parallel.spatial_pyramidal_dis(p, n, cfg, mesh)
-    assert len(flow.sharding.device_set) == 8
-    want = dis.pyramidal_dis(p, n, cfg)
-    np.testing.assert_allclose(np.asarray(flow), np.asarray(want), atol=1e-4)
-
-
-def test_spatial_hs_charbonnier_matches_unsharded(monkeypatch):
-    """Robust HS under spatial TP == unsharded, both backends.  iterations
+def test_spatial_hs_charbonnier_matches_unsharded():
+    """Robust HS under spatial TP == unsharded.  iterations
     <= sweep_tile so the band IRLS cadence equals the unsharded chunking
     (see spatial_pyramidal_dis docstring — same rule for HS)."""
     from cuda_optical_flow_2_tpu.models import horn_schunck as hs
@@ -377,22 +358,15 @@ def test_spatial_hs_charbonnier_matches_unsharded(monkeypatch):
     mesh = parallel.make_mesh(axis_name="space")
     base = dict(levels=2, iterations=8, alpha=20.0, penalty="charbonnier",
                 max_displacement=8)
-    cfg = hs.HSConfig(**base, use_pallas=False)
+    cfg = hs.HSConfig(**base)
     flow = parallel.spatial_pyramidal_hs(p, n, cfg, mesh, sweep_tile=8)
     assert len(flow.sharding.device_set) == 8
     want = hs.pyramidal_hs(p, n, cfg)
     np.testing.assert_allclose(np.asarray(flow), np.asarray(want), atol=1e-4)
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
-    cfg_p = hs.HSConfig(**base, use_pallas=True)
-    flow_p = parallel.spatial_pyramidal_hs(p, n, cfg_p, mesh, sweep_tile=8)
-    want_p = hs.pyramidal_hs(p, n, cfg_p)
-    np.testing.assert_allclose(
-        np.asarray(flow_p), np.asarray(want_p), atol=1e-4
-    )
 
 
-def test_spatial_dis_charbonnier_matches_unsharded(monkeypatch):
-    """Charbonnier (robust) banded refinement == unsharded, both backends.
+def test_spatial_dis_charbonnier_matches_unsharded():
+    """Charbonnier (robust) banded refinement == unsharded.
 
     The lagged-diffusivity weights are recomputed per chunk from band-local
     flow with a k+1 halo (the weights' central-difference ring); parity at
@@ -405,7 +379,6 @@ def test_spatial_dis_charbonnier_matches_unsharded(monkeypatch):
     base = dict(levels=3, iterations=2, refine_iterations=5, window=9,
                 max_displacement=8, refine_penalty="charbonnier",
                 refine_alpha=40.0, refine_eps_data=10.0)
-    # XLA band twin
     cfg = dis.DISConfig(**base, use_pallas=False)
     flow = parallel.spatial_pyramidal_dis(p, n, cfg, mesh)
     assert len(flow.sharding.device_set) == 8
@@ -414,14 +387,6 @@ def test_spatial_dis_charbonnier_matches_unsharded(monkeypatch):
     inner = np.asarray(flow)[64:-64, 16:-16]
     med = np.median(inner, axis=(0, 1))
     assert abs(med[0] - 1) < 0.1 and abs(med[1] - 2) < 0.1, med
-    # fused Pallas band kernels, interpret mode
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
-    cfg_p = dis.DISConfig(**base, use_pallas=True)
-    flow_p = parallel.spatial_pyramidal_dis(p, n, cfg_p, mesh)
-    want_p = dis.pyramidal_dis(p, n, cfg_p)
-    np.testing.assert_allclose(
-        np.asarray(flow_p), np.asarray(want_p), atol=1e-4
-    )
 
 
 def test_grid_flow_model_generic():
@@ -438,14 +403,11 @@ def test_grid_flow_model_generic():
     cfgs_tols = [
         (of.LKConfig(levels=2, window=9, iterations=1, max_displacement=4.0,
                      use_pallas=False), 1e-4),
-        (hs.HSConfig(alpha=8.0, iterations=8, levels=2, use_pallas=False,
-                     max_displacement=8), 1e-4),
+        (hs.HSConfig(alpha=8.0, iterations=8, levels=2, max_displacement=8), 1e-4),
         # FB's documented reassociation-amplification tolerance (see
         # test_spatial_fb_matches_unsharded)
-        (fb.FBConfig(levels=2, iterations=1, winsize=11, use_pallas=False,
-                     max_displacement=4), 2e-2),
-        (tvl1.TVL1Config(levels=2, warps=1, iterations=8, use_pallas=False,
-                         max_displacement=8), 1e-4),
+        (fb.FBConfig(levels=2, iterations=1, winsize=11, max_displacement=4), 2e-2),
+        (tvl1.TVL1Config(levels=2, warps=1, iterations=8, max_displacement=8), 1e-4),
         (dis.DISConfig(levels=2, iterations=1, refine_iterations=3, window=9,
                        use_pallas=False, max_displacement=8), 1e-4),
     ]
@@ -468,8 +430,7 @@ def test_spatial_flow_model_generic_dispatch():
 
     p, n = _smooth_pair(256, 48, dx=2, dy=1)
     mesh = parallel.make_mesh(axis_name="space")
-    cfg = hs.HSConfig(alpha=8.0, iterations=8, levels=2, use_pallas=False,
-                      max_displacement=8)
+    cfg = hs.HSConfig(alpha=8.0, iterations=8, levels=2, max_displacement=8)
     a = parallel.spatial_pyramidal_flow(p, n, cfg, mesh, sweep_tile=4)
     b = parallel.spatial_pyramidal_hs(p, n, cfg, mesh, sweep_tile=4)
     np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
@@ -493,40 +454,10 @@ def test_spatial_dis_validator_messages():
         validate_spatial_dis(512, 64, cfg, 8)  # 16 rows/shard at level 2
 
 
-def test_spatial_pallas_matches_xla_tp_and_unsharded(monkeypatch):
-    """Fused-Pallas TP == XLA TP == unsharded Pallas (interpret mode on CPU).
-
-    VERDICT r1 item 2: the hot path must be the fast path under TP — the
-    shard-local level step runs kernels/lk_step_fused.lk_band_step; the XLA
-    form stays as the use_pallas=False twin this test pins it against.
-    """
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
-    p, n = _smooth_pair(256, 48, dx=2, dy=1)
-    mesh = parallel.make_mesh(axis_name="space")
-    kw = dict(levels=2, window=9, iterations=2, temporal_kernel="gauss3",
-              max_displacement=4.0)
-    flow_p = parallel.spatial_pyramidal_lk(
-        p, n, of.LKConfig(use_pallas=True, **kw), mesh
-    )
-    assert flow_p.shape == (256, 48, 2)
-    assert len(flow_p.sharding.device_set) == 8
-    flow_x = parallel.spatial_pyramidal_lk(
-        p, n, of.LKConfig(use_pallas=False, **kw), mesh
-    )
-    np.testing.assert_allclose(
-        np.asarray(flow_p), np.asarray(flow_x), atol=1e-4
-    )
-    single = of.pyramidal_lk(p, n, of.LKConfig(use_pallas=True, **kw))
-    np.testing.assert_allclose(
-        np.asarray(flow_p), np.asarray(single), atol=1e-4
-    )
-
-
-def test_spatial_prefilter_all_families(monkeypatch):
+def test_spatial_prefilter_all_families():
     """Sharded bilateral prefilter (halo exchange + global-coordinate band
-    filter) matches unsharded preprocessing for every model family, on both
-    the XLA band op and the Pallas band kernel (VERDICT r1 item 4: TP no
-    longer rejects prefilter configs)."""
+    filter) matches unsharded preprocessing for every model family
+    (VERDICT r1 item 4: TP no longer rejects prefilter configs)."""
     from cuda_optical_flow_2_tpu.config import BilateralConfig
     from cuda_optical_flow_2_tpu.models import farneback as fb
     from cuda_optical_flow_2_tpu.models import horn_schunck as hs
@@ -539,26 +470,19 @@ def test_spatial_prefilter_all_families(monkeypatch):
     # Iteration counts are minimal: the prefilter exchange happens once per
     # pyramid build, so extra solver iterations only grow these six programs'
     # compile time without adding prefilter coverage.
-    for up in (False, True):
-        if up:
-            monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
-        cfg = of.LKConfig(levels=2, window=9, iterations=1,
-                          max_displacement=4.0, prefilter=pf, use_pallas=up)
-        flow = parallel.spatial_pyramidal_lk(p, n, cfg, mesh)
-        want = of.pyramidal_lk(p, n, cfg)
-        np.testing.assert_allclose(
-            np.asarray(flow), np.asarray(want), atol=1e-4
-        )
+    cfg = of.LKConfig(levels=2, window=9, iterations=1,
+                      max_displacement=4.0, prefilter=pf)
+    flow = parallel.spatial_pyramidal_lk(p, n, cfg, mesh)
+    want = of.pyramidal_lk(p, n, cfg)
+    np.testing.assert_allclose(np.asarray(flow), np.asarray(want), atol=1e-4)
 
-    cfg_h = hs.HSConfig(alpha=8.0, iterations=8, levels=2, use_pallas=False,
-                        max_displacement=8, prefilter=pf)
+    cfg_h = hs.HSConfig(alpha=8.0, iterations=8, levels=2, max_displacement=8, prefilter=pf)
     flow = parallel.spatial_pyramidal_hs(p, n, cfg_h, mesh, sweep_tile=6)
     np.testing.assert_allclose(
         np.asarray(flow), np.asarray(hs.pyramidal_hs(p, n, cfg_h)), atol=5e-4
     )
 
-    cfg_f = fb.FBConfig(levels=2, iterations=1, winsize=11, use_pallas=False,
-                        max_displacement=4, prefilter=pf)
+    cfg_f = fb.FBConfig(levels=2, iterations=1, winsize=11, max_displacement=4, prefilter=pf)
     flow = parallel.spatial_pyramidal_fb(p, n, cfg_f, mesh)
     np.testing.assert_allclose(
         np.asarray(flow), np.asarray(fb.pyramidal_farneback(p, n, cfg_f)),
@@ -569,7 +493,7 @@ def test_spatial_prefilter_all_families(monkeypatch):
     # high-contrast texture: the sharded path always enforces the budget
     # (documented semantic difference) while the unsharded warp does not.
     cfg_t = tvl1.TVL1Config(levels=2, warps=1, iterations=8,
-                            use_pallas=False, max_displacement=8,
+                            max_displacement=8,
                             prefilter=pf)
     flow = parallel.spatial_pyramidal_tvl1(p, n, cfg_t, mesh, iter_tile=4)
     np.testing.assert_allclose(
@@ -592,72 +516,9 @@ def test_chunked_flow_matches_whole_batch():
         parallel.chunked_flow(pb, nb, cfg, chunk=3)
 
 
-def test_grid_fused_pallas_matches_unsharded(monkeypatch):
-    """Fused Pallas band kernel under the 2-D DP x TP grid (vmap over the
-    batch inside shard_map) == unsharded Pallas."""
-    from jax.sharding import Mesh
-
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
-    p, n = _smooth_pair(256, 48, dx=2, dy=1)
-    pb, nb = jnp.stack([p, p]), jnp.stack([n, n])
-    cfg = of.LKConfig(levels=2, window=9, iterations=2,
-                      max_displacement=4.0, use_pallas=True)
-    mesh = Mesh(np.asarray(jax.devices()).reshape(2, 4), ("batch", "space"))
-    flow = parallel.grid_pyramidal_lk(pb, nb, cfg, mesh)
-    assert len(flow.sharding.device_set) == 8
-    want = of.pyramidal_lk(p, n, cfg)
-    np.testing.assert_allclose(np.asarray(flow[0]), np.asarray(want), atol=1e-4)
-    np.testing.assert_allclose(np.asarray(flow[1]), np.asarray(want), atol=1e-4)
-
-
-def test_spatial_pallas_all_families(monkeypatch):
-    """Every family's TP hot path runs the Pallas kernels shard-locally
-    (fused FB band step; select-loop band warps for HS/TV-L1) and matches
-    its unsharded Pallas twin (interpret mode)."""
-    from cuda_optical_flow_2_tpu.models import farneback as fb
-    from cuda_optical_flow_2_tpu.models import horn_schunck as hs
-    from cuda_optical_flow_2_tpu.models import tvl1
-
-    from cuda_optical_flow_2_tpu.utils import io as uio
-
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
-    mesh = parallel.make_mesh(axis_name="space")
-
-    # Smooth texture: the select-warp's per-TILE recentering picks different
-    # candidate windows for band tiles vs whole-image tiles, so exactness
-    # requires the within-tile flow variation to fit +-d_local around either
-    # mean (the documented select-warp condition); the checkerboard's spiky
-    # FB estimates violate it.
-    # Shapes/iteration counts are the smallest that still cover the moving
-    # parts (multi-level driver + a warping level + multi-chunk sweeps):
-    # interpret-mode spatial programs are the suite's biggest compiles.
-    seq = uio.synthetic_sequence(2, 512, 64, velocity=(2.0, 1.0), noise=0.0)
-    p, n = (jnp.asarray(s, jnp.float32) for s in seq)
-    cfg_f = fb.FBConfig(levels=2, iterations=2, winsize=11, use_pallas=True,
-                        max_displacement=4)
-    flow = parallel.spatial_pyramidal_fb(p, n, cfg_f, mesh)
-    want = fb.pyramidal_farneback(p, n, cfg_f)
-    # The fused band kernel IS the unsharded kernel on global coordinates:
-    # 3 orders tighter than the XLA-TP form's 2e-2 accumulation bound.
-    np.testing.assert_allclose(np.asarray(flow), np.asarray(want), atol=1e-4)
-
-    cfg_h = hs.HSConfig(alpha=8.0, iterations=12, levels=2, use_pallas=True,
-                        max_displacement=16)
-    flow = parallel.spatial_pyramidal_hs(p, n, cfg_h, mesh, sweep_tile=6)
-    want = hs.pyramidal_hs(p, n, cfg_h)
-    np.testing.assert_allclose(np.asarray(flow), np.asarray(want), atol=1e-4)
-
-    cfg_t = tvl1.TVL1Config(levels=2, warps=2, iterations=8,
-                            use_pallas=True, max_displacement=8)
-    flow = parallel.spatial_pyramidal_tvl1(p, n, cfg_t, mesh, iter_tile=4)
-    want = tvl1.pyramidal_tvl1(p, n, cfg_t)
-    np.testing.assert_allclose(np.asarray(flow), np.asarray(want), atol=1e-4)
-
-
-def test_spatial_validators_reject_unsupported_configs(monkeypatch):
+def test_spatial_validators_reject_unsupported_configs():
     """Precise early errors instead of silent divergence / opaque trace
-    failures: coeff-formulation FB, band-kernel-narrow coarsest levels, and
-    median halos taller than a shard."""
+    failures: coeff-formulation FB and median halos taller than a shard."""
     from cuda_optical_flow_2_tpu.models import farneback as fb
     from cuda_optical_flow_2_tpu.models import tvl1
     from cuda_optical_flow_2_tpu.parallel.spatial_models import (
@@ -670,74 +531,31 @@ def test_spatial_validators_reject_unsupported_configs(monkeypatch):
         validate_spatial_fb(
             256, 64, fb.FBConfig(levels=2, warp_planes="coeff"), 8
         )
-    # coarsest level too narrow for the band kernels (w>>1 = 6 < 8)
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
-    with pytest.raises(ValueError, match="coarsest level"):
-        validate_spatial_tvl1(
-            512, 12, tvl1.TVL1Config(levels=2, use_pallas=True), 8
-        )
-    # ...but the XLA path accepts the same narrow shape
+    # a narrow coarsest level (w >> 1 = 6) is fine for the XLA band forms
     validate_spatial_tvl1(
-        512, 12, tvl1.TVL1Config(levels=2, use_pallas=False,
-                                 max_displacement=2), 8
+        512, 12, tvl1.TVL1Config(levels=2, max_displacement=2), 8
     )
     # median halo must fit the shard
     with pytest.raises(ValueError, match="median_filtering"):
         validate_spatial_tvl1(
             64, 64,
-            tvl1.TVL1Config(levels=2, use_pallas=False, iterations=1,
+            tvl1.TVL1Config(levels=2, iterations=1,
                             max_displacement=0, median_filtering=13),
             8, iter_tile=1,
         )
 
 
-def test_spatial_fb_select_warp_nonfused(monkeypatch):
-    """FB configs the fused kernel rejects (winsize > 33) still warp via the
-    select-loop kernel under TP, matching the unsharded fb_level_image warp
-    backend (regression: this branch used the XLA gather warp)."""
-    from cuda_optical_flow_2_tpu.models import farneback as fb
-    from cuda_optical_flow_2_tpu.utils import io as uio
-
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
-    seq = uio.synthetic_sequence(2, 512, 64, velocity=(2.0, 1.0), noise=0.0)
-    p, n = (jnp.asarray(s, jnp.float32) for s in seq)
-    cfg = fb.FBConfig(levels=2, iterations=2, winsize=35, use_pallas=True,
-                      max_displacement=4)
-    mesh = parallel.make_mesh(axis_name="space")
-    flow = parallel.spatial_pyramidal_fb(p, n, cfg, mesh)
-    want = fb.pyramidal_farneback(p, n, cfg)
-    np.testing.assert_allclose(np.asarray(flow), np.asarray(want), atol=2e-2)
-    inner = np.asarray(flow)[32:-32, 16:-16]
-    med = np.median(inner, axis=(0, 1))
-    assert abs(med[0] - 2) < 0.15 and abs(med[1] - 1) < 0.15, med
-
-
-def test_spatial_interpret_respects_kernel_budget(monkeypatch):
-    """Forced interpret mode must NOT dispatch the fused band kernel outside
-    its validated bounds (max_displacement > 96): the dispatch falls back to
-    the XLA twin, in lockstep with _fused_enabled's check_vma decision —
-    regression for the 'or interp' bypass that tripped shard_map's
-    varying-mesh-axes check."""
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
-    p, n = _smooth_pair(256, 48, dx=1, dy=0)
-    mesh = parallel.make_mesh(axis_name="space")
-    cfg = of.LKConfig(levels=1, window=9, iterations=1, use_pallas=True,
-                      max_displacement=128.0)
-    flow = parallel.spatial_pyramidal_lk(p, n, cfg, mesh)
-    want = of.pyramidal_lk(
-        p, n, of.LKConfig(levels=1, window=9, iterations=1,
-                          use_pallas=False, max_displacement=128.0)
-    )
-    np.testing.assert_allclose(np.asarray(flow), np.asarray(want), atol=1e-4)
-
-
-def test_halo_exchange_counts_hoisted(monkeypatch):
+def test_halo_exchange_counts_hoisted():
     """Loop-invariant frame bands are exchanged ONCE per level, not per
     iteration/warp: the collective-permute count of the lowered sharded
     program matches the hoisted formula exactly (one exchange = 2 permutes,
-    up + down).  On a real mesh every exchange is an ICI neighbor transfer,
-    so this pins the communication volume per level:
-      LK fused level:  2 frame exchanges + 1 flow exchange per iteration
+    up + down).  On a real mesh every exchange is an NVLink neighbor
+    transfer, so this pins the communication volume per level:
+      LK coarsest level: prev + next at the gradient halo, then (if it
+                       iterates) next once at the warp halo + 1 flow
+                       exchange per further iteration
+      FB coarsest level: prev + next once, 1 flow exchange per iteration
+                       after the first
       TV-L1 level:     2 frame exchanges + (1 flow exchange +
                        ceil(iterations / iter_tile) sweep-chunk exchanges +
                        1 median-filter exchange if median_filtering is on)
@@ -745,7 +563,6 @@ def test_halo_exchange_counts_hoisted(monkeypatch):
     """
     from cuda_optical_flow_2_tpu.models import tvl1
 
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
     mesh = parallel.make_mesh(8, axis_name="space")
     p = jnp.zeros((768, 128), jnp.float32)
     n = jnp.zeros_like(p)
@@ -760,7 +577,7 @@ def test_halo_exchange_counts_hoisted(monkeypatch):
         got = permutes(
             lambda a, b, c=cfg: parallel.spatial_pyramidal_lk(a, b, c, mesh)
         )
-        assert got == 2 * (2 + it), (it, got)
+        assert got == 2 * (2 + (it > 1) + (it - 1)), (it, got)
 
     for warps in (1, 3):
         for median in (0, 5):
@@ -776,8 +593,8 @@ def test_halo_exchange_counts_hoisted(monkeypatch):
             per_warp = (1 + 2) + (1 if median else 0)
             assert got == 2 * (2 + warps * per_warp), (warps, median, got)
 
-    # FB fused level: prev expansion band + next band once, flow per
-    # iteration — same 2*(2 + iterations) shape as LK.
+    # FB level: prev expansion band + next band once, flow per iteration
+    # after the first (the first starts from zero flow).
     from cuda_optical_flow_2_tpu.models import farneback as fb
 
     for it in (1, 3):
@@ -787,7 +604,7 @@ def test_halo_exchange_counts_hoisted(monkeypatch):
         got = permutes(
             lambda a, b, c=cfg: parallel.spatial_pyramidal_fb(a, b, c, mesh)
         )
-        assert got == 2 * (2 + it), (it, got)
+        assert got == 2 * (2 + it - 1), (it, got)
 
 
 def test_parallel_entry_points_cache_their_jit():
@@ -804,26 +621,26 @@ def test_parallel_entry_points_cache_their_jit():
     cfg = of.LKConfig(
         levels=2, window=9, max_displacement=2.0, use_pallas=False
     )
-    hs = HSConfig(levels=2, iterations=4, use_pallas=False, max_displacement=2)
+    hs = HSConfig(levels=2, iterations=4, max_displacement=2)
 
-    assert batching._sharded_flow_jit(cfg, mesh, "batch", False) is (
-        batching._sharded_flow_jit(cfg, mesh, "batch", False)
+    assert batching._sharded_flow_jit(cfg, mesh, "batch") is (
+        batching._sharded_flow_jit(cfg, mesh, "batch")
     )
-    assert multihost._global_flow_jit(cfg, mesh, "batch", False) is (
-        multihost._global_flow_jit(cfg, mesh, "batch", False)
+    assert multihost._global_flow_jit(cfg, mesh, "batch") is (
+        multihost._global_flow_jit(cfg, mesh, "batch")
     )
-    assert spatial._spatial_lk_jit(cfg, smesh, "space", 2, 32, False) is (
-        spatial._spatial_lk_jit(cfg, smesh, "space", 2, 32, False)
+    assert spatial._spatial_lk_jit(cfg, smesh, "space", 2, 32) is (
+        spatial._spatial_lk_jit(cfg, smesh, "space", 2, 32)
     )
-    assert sm._spatial_hs_jit(hs, smesh, "space", 2, 32, 4, False) is (
-        sm._spatial_hs_jit(hs, smesh, "space", 2, 32, 4, False)
+    assert sm._spatial_hs_jit(hs, smesh, "space", 2, 32, 4) is (
+        sm._spatial_hs_jit(hs, smesh, "space", 2, 32, 4)
     )
     # a different config is a different program
     cfg2 = of.LKConfig(
         levels=1, window=9, max_displacement=2.0, use_pallas=False
     )
-    assert batching._sharded_flow_jit(cfg2, mesh, "batch", False) is not (
-        batching._sharded_flow_jit(cfg, mesh, "batch", False)
+    assert batching._sharded_flow_jit(cfg2, mesh, "batch") is not (
+        batching._sharded_flow_jit(cfg, mesh, "batch")
     )
 
 
@@ -834,37 +651,8 @@ def test_make_mesh_rejects_overrequest():
         parallel.make_mesh(n_devices=len(jax.devices()) + 1)
 
 
-def test_interpret_mode_is_part_of_cached_jit_keys(monkeypatch):
-    """The lru-cached parallel entry points key on OF2_PALLAS_INTERPRET:
-    an executable traced inside utils/debug.stage_report's forced-interpret
-    window must not serve later non-forced callers (nor vice versa)."""
-    from cuda_optical_flow_2_tpu.parallel import spatial
-
-    p, n = _smooth_pair(256, 48, dx=2, dy=1)
-    mesh = parallel.make_mesh(axis_name="space")
-    cfg = of.LKConfig(levels=2, window=9, iterations=1,
-                      max_displacement=4.0, use_pallas=True)
-    # other tests share this (config, mesh, shape); isolate the cache so the
-    # hit/miss assertions below are deterministic under the full suite
-    spatial._spatial_lk_jit.cache_clear()
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
-    flow_i = parallel.spatial_pyramidal_lk(p, n, cfg, mesh)
-    key_i = spatial._spatial_lk_jit.cache_info().currsize
-    # flipping the env var for identical (config, mesh, shape) must MISS
-    monkeypatch.delenv("OF2_PALLAS_INTERPRET")
-    before = spatial._spatial_lk_jit.cache_info()
-    _ = spatial._spatial_lk_jit(cfg, mesh, "space", 8, 256, False)
-    after = spatial._spatial_lk_jit.cache_info()
-    assert after.currsize == before.currsize + 1
-    assert key_i >= 1
-    # and re-forcing hits the original interpret-mode entry
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
-    flow_i2 = parallel.spatial_pyramidal_lk(p, n, cfg, mesh)
-    np.testing.assert_array_equal(np.asarray(flow_i), np.asarray(flow_i2))
-
-
-def test_chunked_flow_reuses_jit(monkeypatch):
-    """chunked_flow caches its jitted program per (config, interpret-mode)
+def test_chunked_flow_reuses_jit():
+    """chunked_flow caches its jitted program per config
     instead of paying a full eager lax.map retrace every call."""
     from cuda_optical_flow_2_tpu.parallel import batching
 
@@ -886,8 +674,7 @@ def test_spatial_fb_gaussian_window_matches_unsharded():
     from cuda_optical_flow_2_tpu.models import farneback as fb
 
     p, n = _smooth_pair(512, 64, dx=2, dy=1)
-    cfg = fb.FBConfig(levels=3, iterations=2, winsize=11, use_pallas=False,
-                      gaussian_window=True, max_displacement=4)
+    cfg = fb.FBConfig(levels=3, iterations=2, winsize=11, gaussian_window=True, max_displacement=4)
     mesh = parallel.make_mesh(axis_name="space")
     flow = parallel.spatial_pyramidal_fb(p, n, cfg, mesh)
     assert flow.shape == (512, 64, 2)

@@ -172,35 +172,3 @@ def test_odd_sizes_recover_translation():
         inner = flow[24:-24, 24:-24]
         epe = np.hypot(inner[..., 0] - 2.0, inner[..., 1] - 1.0)
         assert epe.mean() < 0.2, (h, w, epe.mean())
-
-def test_pipeline_fused_half_upsample_dispatch(monkeypatch):
-    """coarse_to_fine takes the in-kernel upsample at qualifying levels and
-    the end-to-end flow matches the XLA-upsample route (round 3 lever)."""
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
-    import cuda_optical_flow_2_tpu as of
-    from cuda_optical_flow_2_tpu.models import lucas_kanade as lk
-    from cuda_optical_flow_2_tpu.utils import io
-
-    fr = io.synthetic_sequence(2, 128, 448, velocity=(2.0, 1.0))
-    p, n = (jnp.asarray(f, jnp.float32) for f in fr)
-    cfg = of.LKConfig(levels=2, window=9, iterations=2,
-                      max_displacement=8, d_local=7,
-                      fused_half_upsample=True)  # opt-in (off by default)
-    assert lk._fused_half_upsample(
-        p, jnp.zeros((64, 224, 2), jnp.float32), cfg
-    )
-    # warm-start flow already at level res must NOT take the half path
-    assert not lk._fused_half_upsample(
-        p, jnp.zeros((128, 448, 2), jnp.float32), cfg
-    )
-    # and the default config keeps the XLA upsample (measured faster)
-    assert not lk._fused_half_upsample(
-        p, jnp.zeros((64, 224, 2), jnp.float32),
-        of.LKConfig(levels=2, window=9, iterations=2, max_displacement=8),
-    )
-    flow = np.asarray(of.pyramidal_lk(p, n, cfg))
-    monkeypatch.setattr(lk, "_fused_half_upsample", lambda *a: False)
-    want = np.asarray(of.pyramidal_lk(p, n, cfg))
-    np.testing.assert_allclose(flow, want, atol=2e-5)
-    m = np.median(flow[24:-24, 24:-24], axis=(0, 1))
-    assert abs(m[0] - 2) < 0.15 and abs(m[1] - 1) < 0.15

@@ -87,7 +87,7 @@ def test_streaming_hs_matches_pairwise():
     from cuda_optical_flow_2_tpu.models import horn_schunck as hs
 
     frames = io.synthetic_sequence(3, 96, 128, velocity=(1.0, 0.5))
-    cfg = hs.HSConfig(alpha=8.0, iterations=40, levels=2, use_pallas=False)
+    cfg = hs.HSConfig(alpha=8.0, iterations=40, levels=2)
     flows = {i: np.asarray(f) for i, f in streaming.process_sequence(frames, cfg)}
     assert sorted(flows) == [1, 2]
     for i in (1, 2):
@@ -105,7 +105,7 @@ def test_streaming_fb_matches_pairwise():
     from cuda_optical_flow_2_tpu.models import farneback as fb
 
     frames = io.synthetic_sequence(3, 96, 128, velocity=(1.0, 0.5))
-    cfg = fb.FBConfig(levels=2, iterations=2, use_pallas=False)
+    cfg = fb.FBConfig(levels=2, iterations=2)
     flows = {i: np.asarray(f) for i, f in streaming.process_sequence(frames, cfg)}
     assert sorted(flows) == [1, 2]
     for i in (1, 2):
@@ -177,9 +177,9 @@ def test_warm_start_model_generic():
     from cuda_optical_flow_2_tpu.models import tvl1
 
     for cfg in (
-        hs.HSConfig(levels=2, iterations=20, use_pallas=False),
-        fb.FBConfig(levels=2, iterations=2, use_pallas=False),
-        tvl1.TVL1Config(levels=2, warps=2, iterations=15, use_pallas=False),
+        hs.HSConfig(levels=2, iterations=20),
+        fb.FBConfig(levels=2, iterations=2),
+        tvl1.TVL1Config(levels=2, warps=2, iterations=15),
     ):
         flows = {i: np.asarray(f)
                  for i, f in streaming.process_sequence(frames, cfg, warm_start=True)}

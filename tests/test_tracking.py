@@ -83,7 +83,7 @@ def test_tracking_model_generic():
     frames = io.synthetic_sequence(3, 64, 96, velocity=(1.5, -1.0), noise=0.0)
     stack = jnp.asarray(np.stack(frames).astype(np.float32))
     pts0 = np.asarray([[48.0, 32.0]], np.float32)
-    cfg = FBConfig(levels=2, iterations=1, use_pallas=False)
+    cfg = FBConfig(levels=2, iterations=1)
     pos, alive = track_sequence(stack, pts0, cfg, warm_start=False)
     np.testing.assert_allclose(
         np.asarray(pos)[-1, 0], pts0[0] + 2 * np.asarray([1.5, -1.0]),

@@ -18,7 +18,7 @@ def _pair(h, w, dx, dy, period=24):
 
 def test_translation_accuracy():
     p, n = _pair(128, 160, 2.0, 1.0)
-    cfg = tvl1.TVL1Config(levels=3, warps=3, iterations=20, use_pallas=False)
+    cfg = tvl1.TVL1Config(levels=3, warps=3, iterations=20)
     f = np.asarray(tvl1.pyramidal_tvl1(p, n, cfg))
     c = f[24:-24, 24:-24]
     epe = float(np.hypot(c[..., 0] - 2, c[..., 1] - 1).mean())
@@ -68,11 +68,9 @@ def test_preserves_motion_discontinuity_vs_hs():
     prev = warp_bilinear(nxt, jnp.asarray(gt))
 
     f_tv = np.asarray(tvl1.pyramidal_tvl1(
-        prev, nxt, tvl1.TVL1Config(levels=3, warps=4, iterations=30,
-                                   use_pallas=False)))
+        prev, nxt, tvl1.TVL1Config(levels=3, warps=4, iterations=30)))
     f_hs = np.asarray(hs.pyramidal_hs(
-        prev, nxt, hs.HSConfig(levels=3, iterations=80, alpha=8.0,
-                               use_pallas=False)))
+        prev, nxt, hs.HSConfig(levels=3, iterations=80, alpha=8.0)))
 
     def boundary_width(f):
         # columns (inside rows) where u is in the ambiguous middle band
@@ -90,7 +88,7 @@ def test_streaming_tvl1_matches_pairwise():
     from cuda_optical_flow_2_tpu.models import streaming
 
     frames = io.synthetic_sequence(3, 96, 128, velocity=(1.0, 0.5))
-    cfg = tvl1.TVL1Config(levels=2, warps=2, iterations=10, use_pallas=False)
+    cfg = tvl1.TVL1Config(levels=2, warps=2, iterations=10)
     flows = {i: np.asarray(f) for i, f in streaming.process_sequence(frames, cfg)}
     assert sorted(flows) == [1, 2]
     for i in (1, 2):
@@ -98,31 +96,6 @@ def test_streaming_tvl1_matches_pairwise():
             jnp.asarray(frames[i - 1].astype(np.float32)),
             jnp.asarray(frames[i].astype(np.float32)), cfg))
         np.testing.assert_allclose(flows[i], pair, atol=1e-5)
-
-
-def test_tvl1_sweep_kernel_matches_xla(monkeypatch):
-    """Time-tiled Pallas relaxation (interpret) == XLA scan, float-tight."""
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
-    from cuda_optical_flow_2_tpu.kernels import tvl1_sweep
-
-    p, n = _pair(67, 93, 1.0, 0.5)  # odd sizes on purpose
-    cfg = tvl1.TVL1Config(levels=1, warps=1, iterations=20, use_pallas=False)
-    u0 = jnp.zeros((67, 93, 2), jnp.float32)
-    want = np.asarray(tvl1.tvl1_level(p, n, u0, u0, cfg))
-    got = np.asarray(tvl1_sweep.tvl1_relax(
-        p, n, u0, u0, iterations=20, lambda_=cfg.lambda_, theta=cfg.theta,
-        tau=cfg.tau, eps=cfg.epsilon, interpret=True))
-    np.testing.assert_allclose(got, want, atol=1e-5)
-
-
-def test_tvl1_dispatch_forced_interpret(monkeypatch):
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
-    p, n = _pair(96, 128, 2.0, 1.0)
-    cfg_x = tvl1.TVL1Config(levels=2, warps=2, iterations=15, use_pallas=False)
-    cfg_k = tvl1.TVL1Config(levels=2, warps=2, iterations=15, use_pallas=True)
-    fx = np.asarray(tvl1.pyramidal_tvl1(p, n, cfg_x))
-    fk = np.asarray(tvl1.pyramidal_tvl1(p, n, cfg_k))
-    np.testing.assert_allclose(fk, fx, atol=1e-4)
 
 
 def test_tvl1_realtime_preset():
@@ -136,7 +109,7 @@ def test_tvl1_realtime_preset():
     assert (TVL1_REALTIME.levels, TVL1_REALTIME.warps,
             TVL1_REALTIME.iterations) == (4, 4, 14)
     frames = io.synthetic_sequence(2, 128, 96, velocity=(2.0, 1.0), noise=0.0)
-    cfg = dataclasses.replace(TVL1_REALTIME, levels=2, use_pallas=False)
+    cfg = dataclasses.replace(TVL1_REALTIME, levels=2)
     flow = np.asarray(pyramidal_tvl1(
         jnp.asarray(frames[0], jnp.float32), jnp.asarray(frames[1], jnp.float32), cfg
     ))
